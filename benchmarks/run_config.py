@@ -30,7 +30,7 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from ibu_tpu.utils import apply_platform_env
+from ibu_jax.utils import apply_platform_env
 
 apply_platform_env()
 
@@ -48,9 +48,9 @@ def config1_roundtrip() -> None:
     (BASELINE config 1; mirrors the reference README usage demo)."""
     import io
 
-    from ibu_tpu import Header, Reader, Writer
-    from ibu_tpu.constructs.record import make_records
-    from ibu_tpu.ops import codec as C
+    from ibu_jax import Header, Reader, Writer
+    from ibu_jax.constructs.record import make_records
+    from ibu_jax.ops import codec as C
 
     header = Header.new(16, 12)
     barcodes = C.encode_seqs(["ACGTACGTACGTACGT", "TTTTGGGGCCCCAAAA"])
@@ -77,12 +77,10 @@ def config2_batch_encode(n: int, workdir: str) -> None:
     IBU file (BASELINE config 2)."""
     import jax.numpy as jnp
 
-    from ibu_tpu import Header, Writer
-    from ibu_tpu.ops import codec as C
-    from ibu_tpu.ops.codec_pallas import encode_records
-    from ibu_tpu.ops.stats import sort_records_soa
-    from ibu_tpu.ops.u64 import records_from_soa
-    import jax
+    from ibu_jax import Header, Writer
+    from ibu_jax.ops import codec as C
+    from ibu_jax.ops.stats import sort_records_soa
+    from ibu_jax.ops.u64 import records_from_soa
 
     rng = np.random.default_rng(0)
     al = _alphabet()
@@ -92,20 +90,10 @@ def config2_batch_encode(n: int, workdir: str) -> None:
         [np.arange(n, dtype=np.uint32), np.zeros(n, dtype=np.uint32)]
     )
 
-    interpret = jax.default_backend() != "tpu"
     t0 = time.perf_counter()
-    if interpret:  # CPU fallback: lax path (pallas interpret is slow at size)
-        soa = jnp.concatenate(
-            [
-                C.lax_encode_planes(jnp.asarray(bc_planes)),
-                C.lax_encode_planes(jnp.asarray(umi_planes)),
-                jnp.asarray(idx),
-            ]
-        )
-    else:
-        soa = encode_records(
-            jnp.asarray(bc_planes), jnp.asarray(umi_planes), jnp.asarray(idx)
-        )
+    soa = C.lax_encode_records(
+        jnp.asarray(bc_planes), jnp.asarray(umi_planes), jnp.asarray(idx)
+    )
     # hinted comparator: bc16/umi12 + arange indices < 2^32 (2.2x sort)
     soa_sorted = sort_records_soa(soa, bc_len=16, umi_len=12, index_bits=32)
     records = records_from_soa(np.asarray(soa_sorted))
@@ -137,7 +125,7 @@ def config3_batch_decode(n: int, workdir: str) -> None:
     import jax
     import jax.numpy as jnp
 
-    from ibu_tpu import (
+    from ibu_jax import (
         Header,
         InvalidMagicNumber,
         Reader,
@@ -145,10 +133,9 @@ def config3_batch_decode(n: int, workdir: str) -> None:
         Writer,
         load_to_vec,
     )
-    from ibu_tpu.constructs.record import make_records
-    from ibu_tpu.ops import codec as C
-    from ibu_tpu.ops.codec_pallas import decode_records
-    from ibu_tpu.ops.u64 import soa_from_records
+    from ibu_jax.constructs.record import make_records
+    from ibu_jax.ops import codec as C
+    from ibu_jax.ops.u64 import soa_from_records
 
     rng = np.random.default_rng(1)
     al = _alphabet()
@@ -164,12 +151,7 @@ def config3_batch_decode(n: int, workdir: str) -> None:
     t0 = time.perf_counter()
     header, loaded = load_to_vec(path)
     soa = jnp.asarray(soa_from_records(loaded))
-    if jax.default_backend() == "tpu":
-        bc_p, umi_p, idx_p = decode_records(soa, 16, 12)
-    else:
-        bc_p = C.lax_decode_planes(soa[0:2], 16)
-        umi_p = C.lax_decode_planes(soa[2:4], 12)
-        idx_p = soa[4:6]
+    bc_p, umi_p, idx_p = C.lax_decode_records(soa, 16, 12)
     jax.block_until_ready((bc_p, umi_p, idx_p))
     decode_s = time.perf_counter() - t0
 
@@ -200,10 +182,10 @@ def config3_batch_decode(n: int, workdir: str) -> None:
 
 def config4_compressed_histogram(n: int, workdir: str) -> None:
     """gzip/zstd IBU streams → per-barcode histogram (BASELINE config 4)."""
-    from ibu_tpu import Header, Reader, Writer
-    from ibu_tpu.constructs.record import make_records
-    from ibu_tpu.ops.stats import barcode_histogram_np
-    from ibu_tpu.parallel.device import sharded_barcode_histogram
+    from ibu_jax import Header, Reader, Writer
+    from ibu_jax.constructs.record import make_records
+    from ibu_jax.ops.stats import barcode_histogram_np
+    from ibu_jax.parallel.device import sharded_barcode_histogram
 
     rng = np.random.default_rng(2)
     records = make_records(
@@ -244,8 +226,8 @@ def config4_compressed_histogram(n: int, workdir: str) -> None:
 def config5_multihost_parallel(n: int, workdir: str) -> None:
     """Sharded parallel count + merge over the mesh/pod slice
     (BASELINE config 5; parallel.rs parity)."""
-    from ibu_tpu.parallel.multihost import multihost_file_stats
-    from ibu_tpu.utils.datagen import parallel_fields, write_patterned_file
+    from ibu_jax.parallel.multihost import multihost_file_stats
+    from ibu_jax.utils.datagen import parallel_fields, write_patterned_file
 
     path = os.path.join(workdir, "mh.ibu")
     write_patterned_file(path, n, parallel_fields)

@@ -1,15 +1,15 @@
 #!/usr/bin/env python
-"""Records/s scaling efficiency across mesh sizes.
+"""CPU correctness tool: the streaming stats engine across mesh sizes.
 
-Measures the streaming stats engine (count + exact field checksums) over
-the same file at mesh sizes 1, 2, 4, ..., all available devices, and
-reports records/s and parallel efficiency vs the single-device baseline —
-the measurement for BASELINE.md's "≥85% records/s scaling" target.
+Runs the streaming stats engine (count + exact field checksums) over the
+same file at mesh sizes 1, 2, 4, ..., all available devices, checks every
+count, and reports records/s and the ratio to the single-device run. The
+``--pinned-processes`` mode runs a jax.distributed cohort of CPU processes
+(one pinned core each) through the multi-process engine.
 
-On a real pod slice, run one process per host (jax.distributed) and this
-script measures ICI/DCN-merged scaling; on a single host it measures
-chip-level scaling. On a CPU dev box the virtual devices share physical
-cores, so efficiencies are lower bounds only.
+Its workers are pinned to the CPU, and virtual CPU devices share physical
+cores, so its rates say nothing about accelerator scaling; measured
+one-to-four-card scaling belongs to a run on the cards themselves.
 
 Prints one JSON line:
     {"devices": [...], "records_per_s": [...], "efficiency": [...]}
@@ -26,7 +26,7 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from ibu_tpu.utils import apply_platform_env
+from ibu_jax.utils import apply_platform_env
 
 apply_platform_env()
 
@@ -41,14 +41,14 @@ os.sched_setaffinity(0, {rank % os.cpu_count()})
 os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=1"
 sys.path.insert(0, sys.argv[8])
-from ibu_tpu.utils import apply_platform_env
+from ibu_jax.utils import apply_platform_env
 apply_platform_env()
 import jax
 if nprocs > 1:
     jax.distributed.initialize(
         f"127.0.0.1:{port}", num_processes=nprocs, process_id=rank
     )
-from ibu_tpu.parallel.multihost import multihost_file_stats
+from ibu_jax.parallel.multihost import multihost_file_stats
 best = float("inf")
 for rep in range(reps + 1):  # rep 0 pays compilation
     t0 = time.perf_counter()
@@ -101,7 +101,7 @@ def main() -> None:
     ap.add_argument(
         "--kernel", choices=("stats", "sort"), default="stats",
         help="stats: streaming count+checksum engine; sort: the "
-             "distributed mesh sample sort (ibu_tpu.parallel.sort)",
+             "distributed mesh sample sort (ibu_jax.parallel.sort)",
     )
     ap.add_argument(
         "--pinned-processes", type=int, default=None, metavar="N",
@@ -110,7 +110,7 @@ def main() -> None:
              "virtual device per process) against a pinned 1-process "
              "baseline — the honest CPU-box efficiency methodology "
              "(XLA's thread pool makes unpinned 1-device baselines use "
-             "every core; see RESULTS.md)",
+             "every core)",
     )
     args = ap.parse_args()
 
@@ -118,7 +118,7 @@ def main() -> None:
         n = int(args.records * 1_000_000)
         workdir = tempfile.mkdtemp(prefix="ibu_scaling_")
         path = os.path.join(workdir, "scale.ibu")
-        from ibu_tpu.utils.datagen import parallel_fields, write_patterned_file
+        from ibu_jax.utils.datagen import parallel_fields, write_patterned_file
 
         print(f"writing {n} records...", file=sys.stderr, flush=True)
         write_patterned_file(path, n, parallel_fields)
@@ -142,9 +142,9 @@ def main() -> None:
 
     import jax
 
-    from ibu_tpu.io.mmap import MmapReader
-    from ibu_tpu.parallel.device import AXIS, stream_file_stats
-    from ibu_tpu.utils.datagen import parallel_fields, write_patterned_file
+    from ibu_jax.io.mmap import MmapReader
+    from ibu_jax.parallel.device import AXIS, stream_file_stats
+    from ibu_jax.utils.datagen import parallel_fields, write_patterned_file
     from jax.sharding import Mesh
 
     n = int(args.records * 1_000_000)
@@ -164,7 +164,7 @@ def main() -> None:
 
     want_idx = (n * (n - 1) // 2) & 0xFFFFFFFFFFFFFFFF
     if args.kernel == "sort":
-        from ibu_tpu.parallel.sort import sharded_sort_records
+        from ibu_jax.parallel.sort import sharded_sort_records
 
         recs = np.asarray(MmapReader(path).records)
         oracle = np.sort(recs, order=("barcode", "umi", "index"))

@@ -29,8 +29,8 @@ import time
 
 import numpy as np
 
-from ibu_tpu import MmapReader
-from ibu_tpu.utils import apply_platform_env
+from ibu_jax import MmapReader
+from ibu_jax.utils import apply_platform_env
 
 apply_platform_env()
 
@@ -57,8 +57,8 @@ def synth_fastq(path: str, reads: int, prefix_len: int, seed: int = 0) -> None:
 
 def fastq_prefixes(path: str, prefix_len: int, batch: int = 200_000):
     """Yield ``(N, prefix_len)`` ASCII read-prefix arrays (see
-    :func:`ibu_tpu.pipelines.fastq_prefix_batches`, which this wraps)."""
-    from ibu_tpu.pipelines import fastq_prefix_batches
+    :func:`ibu_jax.pipelines.fastq_prefix_batches`, which this wraps)."""
+    from ibu_jax.pipelines import fastq_prefix_batches
 
     yield from fastq_prefix_batches(path, prefix_len, batch)
 
@@ -81,7 +81,7 @@ def main() -> None:
         print(f"Generating {args.reads} synthetic reads...")
         synth_fastq(fastq, args.reads, prefix_len)
 
-    from ibu_tpu.pipelines import ingest_fastq
+    from ibu_jax.pipelines import ingest_fastq
 
     print("Ingesting...")
     t0 = time.perf_counter()
@@ -92,7 +92,7 @@ def main() -> None:
           f"({total/max(dt,1e-9)/1e6:.2f} M reads/s)")
 
     # read back and summarize with the parallel engine
-    from ibu_tpu.parallel.device import stream_file_stats
+    from ibu_jax.parallel.device import stream_file_stats
 
     reader = MmapReader(args.out)
     assert reader.header().sorted()

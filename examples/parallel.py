@@ -9,9 +9,8 @@ Two engines run the same workload:
 * ``--engine host``: host threads with the reference's shard partitioning
   (the direct analogue of the Rust thread engine);
 * ``--engine device`` (default): record batches sharded over the jax device
-  mesh, per-shard exact u64 limb-sum states, host-merged — the TPU-native
-  path (on this machine's test setup that mesh is CPU; on TPU hardware it
-  is the chip mesh).
+  mesh, per-shard exact u64 limb-sum states, host-merged (the mesh is the
+  accelerator's devices, or CPU devices where there is none).
 
 Default 10M records; the reference's headline run is ``--records 1000``
 (1B records, 24 GB).
@@ -32,8 +31,8 @@ import sys
 import threading
 import time
 
-from ibu_tpu import BatchProcessor, MmapReader, process_parallel
-from ibu_tpu.utils import apply_platform_env
+from ibu_jax import BatchProcessor, MmapReader, process_parallel
+from ibu_jax.utils import apply_platform_env
 
 apply_platform_env()
 
@@ -41,7 +40,7 @@ CHUNK = 4 * 1024 * 1024
 
 
 def write_file(filename: str, num_records: int) -> None:
-    from ibu_tpu.utils.datagen import parallel_fields, write_patterned_file
+    from ibu_jax.utils.datagen import parallel_fields, write_patterned_file
 
     start = time.perf_counter()
     write_patterned_file(filename, num_records, parallel_fields,
@@ -75,7 +74,7 @@ def run_host_engine(reader: MmapReader, threads: int) -> tuple[int, int, int]:
 
 
 def run_device_engine(reader: MmapReader) -> tuple[int, int, int]:
-    from ibu_tpu.parallel.device import stream_file_stats
+    from ibu_jax.parallel.device import stream_file_stats
 
     stats = stream_file_stats(reader)
     return (stats["barcode_sum"], stats["umi_sum"], stats["index_sum"])

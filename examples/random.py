@@ -21,8 +21,8 @@ import time
 
 import numpy as np
 
-from ibu_tpu import HEADER_SIZE, RECORD_SIZE, Header, Writer
-from ibu_tpu.constructs.record import make_records
+from ibu_jax import HEADER_SIZE, RECORD_SIZE, Header, Writer
+from ibu_jax.constructs.record import make_records
 
 CHUNK = 4 * 1024 * 1024  # records per generated batch
 

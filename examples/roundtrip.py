@@ -24,9 +24,9 @@ import time
 
 import numpy as np
 
-from ibu_tpu import Header, Reader, Writer, load_to_vec
-from ibu_tpu.constructs.record import make_records
-from ibu_tpu.utils.datagen import roundtrip_fields
+from ibu_jax import Header, Reader, Writer, load_to_vec
+from ibu_jax.constructs.record import make_records
+from ibu_jax.utils.datagen import roundtrip_fields
 
 CHUNK = 4 * 1024 * 1024
 

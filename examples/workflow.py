@@ -12,12 +12,13 @@ format in exactly this pipeline):
                     →  count   (barcode × index molecule matrix)
 
 A synthetic ground truth makes every stage checkable: reads are drawn
-from a known allowlist of cell barcodes with a configurable per-read
-error rate, so the knee-called allowlist must equal the planted one
-exactly and the final matrix must equal the planted molecule table
-exactly. No stage is fed ground truth — the allowlist that drives
-correction is inferred from the data. Prints per-stage wall time and
-rates.
+from planted molecules of a known allowlist of cell barcodes
+(:func:`ibu_jax.utils.datagen.planted_library`), with a configurable share
+of reads carrying a one-base barcode error. The knee-called allowlist must
+equal the planted one exactly and the final molecule table must equal the
+planted (cell, gene) molecule counts exactly. No stage is fed ground truth
+— the allowlist that drives correction is inferred from the data. Prints
+per-stage wall time and rates.
 
 Usage: python examples/workflow.py [--cells 100] [--reads 200000]
        [--error-rate 0.2] [--genes 50]
@@ -36,46 +37,9 @@ import time
 
 import numpy as np
 
-from ibu_tpu.utils import apply_platform_env
+from ibu_jax.utils import apply_platform_env
 
 apply_platform_env()
-
-BC_LEN, UMI_LEN = 16, 12
-
-
-def make_ground_truth(rng, cells, genes, reads, error_rate):
-    """Plant molecules, expand to reads, inject single-base errors."""
-    from ibu_tpu.ops import codec as C
-
-    allow = np.sort(
-        rng.choice(1 << 30, size=cells, replace=False).astype(np.uint64)
-    )
-    # molecules: each read is (cell, umi, gene); duplicates share umi+gene
-    cell_of = rng.integers(0, cells, reads)
-    umi = rng.integers(0, 1 << 12, reads).astype(np.uint64)
-    gene = rng.integers(0, genes, reads).astype(np.uint64)
-    bc = allow[cell_of]
-    # planted truth: distinct (bc, umi, gene) triples per (bc, gene)
-    triples = np.unique(
-        np.stack([bc, umi, gene], axis=1), axis=0
-    )
-    pairs, truth_counts = np.unique(triples[:, [0, 2]], axis=0,
-                                    return_counts=True)
-    # inject errors: flip ONE base of the barcode on a fraction of reads
-    nerr = int(error_rate * reads)
-    pick = rng.choice(reads, size=nerr, replace=False)
-    delta = (
-        rng.integers(1, 4, nerr).astype(np.uint64)
-        << (2 * rng.integers(0, BC_LEN, nerr).astype(np.uint64))
-    )
-    bc_err = bc.copy()
-    bc_err[pick] ^= delta
-    bc_rows = C.np_unpack(bc_err, BC_LEN)
-    umi_rows = C.np_unpack(umi, UMI_LEN)
-    return allow, bc_rows, umi_rows, gene, dict(
-        zip(map(tuple, pairs.tolist()), truth_counts.tolist())
-    )
-
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
@@ -87,9 +51,10 @@ def main():
     ap.add_argument("--workdir", default=None)
     args = ap.parse_args()
 
-    from ibu_tpu import MmapReader
-    from ibu_tpu.ops import codec as C
-    from ibu_tpu.pipelines import (
+    from ibu_jax import MmapReader
+    from ibu_jax.ops import codec as C
+    from ibu_jax.utils.datagen import pair_counts, planted_library
+    from ibu_jax.pipelines import (
         call_cells,
         correct_file,
         count_matrix,
@@ -99,18 +64,18 @@ def main():
 
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
-    allow, bc_rows, umi_rows, gene, truth = make_ground_truth(
+    lib = planted_library(
         rng, args.cells, args.genes, args.reads, args.error_rate
     )
     print(f"[gen]     {args.reads} reads, {args.cells} cells, "
-          f"{args.genes} genes, {len(truth)} true matrix entries "
+          f"{args.genes} genes, {len(lib.truth_pairs)} true matrix entries "
           f"({time.perf_counter()-t0:.2f}s)")
 
     workdir = args.workdir or tempfile.mkdtemp(prefix="ibu_workflow_")
     raw = f"{workdir}/raw.ibu"
 
     t = time.perf_counter()
-    encode_sorted_file(raw, bc_rows, umi_rows, index=gene)
+    encode_sorted_file(raw, lib.bc_rows, lib.umi_rows, index=lib.gene)
     dt = time.perf_counter() - t
     print(f"[ingest]  encode+sort+write -> {raw} "
           f"({args.reads/dt/1e6:.1f} M reads/s, {dt:.2f}s)")
@@ -129,10 +94,10 @@ def main():
     print(f"[cells]   {kstats['method']} called {kstats['cells']} cells of "
           f"{kstats['barcodes']} barcodes (threshold >= "
           f"{kstats['threshold']} reads, {dt:.2f}s)")
-    if not np.array_equal(called, allow):
+    if not np.array_equal(called, lib.allowlist):
         raise SystemExit(
             f"FAIL: knee allowlist != planted allowlist "
-            f"({len(called)} called vs {len(allow)} planted)"
+            f"({len(called)} called vs {len(lib.allowlist)} planted)"
         )
 
     t = time.perf_counter()
@@ -157,24 +122,20 @@ def main():
           f"{stats['entries']} entries, {stats['molecules']} molecules "
           f"({dt:.2f}s)")
 
-    # verify against the planted truth. Ambiguously-corrected reads drop,
-    # which can only LOSE molecules, never invent them; with a sparse
-    # allowlist (2^30 space) collisions are negligible and every surviving
-    # entry must be a subset of the truth with matching structure.
-    mm = MmapReader(mol)
-    recs = np.asarray(mm.records)
-    pairs = np.unique(np.stack([recs["barcode"], recs["index"]], axis=1),
-                      axis=0)
-    missing = sum(
-        1 for p in map(tuple, pairs.tolist()) if p not in truth
-    )
-    if missing:
-        raise SystemExit(f"FAIL: {missing} matrix entries not in the "
-                         "planted truth")
-    coverage = len(pairs) / len(truth)
+    # verify against the planted truth: allowlist barcodes are ≥ 3 bases
+    # apart, so every one-base error corrects to its own cell, and dedup
+    # leaves exactly one record per planted molecule that was read
+    recs = np.asarray(MmapReader(mol).records)
+    pairs, counts = pair_counts(recs["barcode"], recs["index"])
+    if not (np.array_equal(pairs, lib.truth_pairs)
+            and np.array_equal(counts, lib.truth_counts)):
+        raise SystemExit(
+            f"FAIL: {len(pairs)} (cell, gene) entries / {counts.sum()} "
+            f"molecules, planted {len(lib.truth_pairs)} / "
+            f"{lib.truth_counts.sum()}"
+        )
     print(f"[verify]  all {len(pairs)} surviving entries match the planted "
-          f"truth ({coverage:.1%} coverage; losses are dropped ambiguous "
-          "corrections)")
+          "truth exactly (100.0% coverage)")
     print(f"workdir: {workdir}")
 
 

@@ -9,17 +9,17 @@ agreement (the framework's oracle-twin convention, SURVEY.md §4).
 import numpy as np
 import pytest
 
-from ibu_tpu import Header, Writer
-from ibu_tpu.constructs.record import make_records
-from ibu_tpu.ops.codec import encode_seqs
-from ibu_tpu.ops.knee import (
+from ibu_jax import Header, Writer
+from ibu_jax.constructs.record import make_records
+from ibu_jax.ops.codec import encode_seqs
+from ibu_jax.ops.knee import (
     call_from_counts,
     knee_threshold,
     lax_knee_index,
     np_knee_index,
     ordmag_threshold,
 )
-from ibu_tpu.pipelines import barcode_counts, call_cells
+from ibu_jax.pipelines import barcode_counts, call_cells
 
 
 def _planted(
@@ -171,7 +171,7 @@ class TestCallCellsPipeline:
         with Writer.from_path(str(src), Header.new(16, 12)) as w:
             w.write_batch(recs)
         allow = tmp_path / "allow.txt"
-        from ibu_tpu.__main__ import main
+        from ibu_jax.__main__ import main
 
         rc = main(["cells", str(src), "-o", str(allow)])
         assert rc == 0

@@ -15,9 +15,9 @@ import sys
 import numpy as np
 import pytest
 
-from ibu_tpu import Header, MmapReader, Writer
-from ibu_tpu.constructs.record import make_records
-from ibu_tpu.pipelines import check_file, concat_files
+from ibu_jax import Header, MmapReader, Writer
+from ibu_jax.constructs.record import make_records
+from ibu_jax.pipelines import check_file, concat_files
 
 
 def _write(path, records, bc_len=8, umi_len=6, sorted_flag=False,
@@ -136,7 +136,7 @@ class TestCheckFile:
         raw = open(p, "rb").read()
         open(p, "wb").write(raw[: len(raw) // 2])
         r = subprocess.run(
-            [sys.executable, "-m", "ibu_tpu", "check", p],
+            [sys.executable, "-m", "ibu_jax", "check", p],
             capture_output=True, text=True)
         assert r.returncode == 1, r.stderr
         assert "CORRUPT" in r.stdout and "Traceback" not in r.stderr
@@ -167,7 +167,7 @@ class TestCheckFile:
 
     def test_torn_zstd_repair_salvages_block_prefix(self, tmp_path):
         pytest.importorskip("zstandard")
-        from ibu_tpu.pipelines import repair_file
+        from ibu_jax.pipelines import repair_file
 
         p = _write(tmp_path / "r.ibu.zst", _sorted_records(0, 50_000),
                    sorted_flag=True, compression="auto")
@@ -199,11 +199,11 @@ class TestCheckFile:
         raw = open(bad, "rb").read()
         open(bad, "wb").write(raw[:-1])
         r = subprocess.run(
-            [sys.executable, "-m", "ibu_tpu", "check", good, "--json"],
+            [sys.executable, "-m", "ibu_jax", "check", good, "--json"],
             capture_output=True, text=True)
         assert r.returncode == 0 and '"ok": true' in r.stdout
         r = subprocess.run(
-            [sys.executable, "-m", "ibu_tpu", "check", bad],
+            [sys.executable, "-m", "ibu_jax", "check", bad],
             capture_output=True, text=True)
         assert r.returncode == 1 and "CORRUPT" in r.stdout
 
@@ -224,7 +224,7 @@ class TestConcatFiles:
             got["barcode"], np.arange(250, dtype=np.uint64))
 
     def test_split_concat_roundtrip(self, tmp_path):
-        from ibu_tpu.pipelines import split_file
+        from ibu_jax.pipelines import split_file
 
         src = _write(tmp_path / "src.ibu", _sorted_records(0, 997),
                      sorted_flag=True)
@@ -303,7 +303,7 @@ class TestConcatFiles:
                    sorted_flag=True)
         out = str(tmp_path / "o.ibu")
         r = subprocess.run(
-            [sys.executable, "-m", "ibu_tpu", "concat", out, a, b],
+            [sys.executable, "-m", "ibu_jax", "concat", out, a, b],
             capture_output=True, text=True)
         assert r.returncode == 0, r.stderr
         assert "30 records (sorted)" in r.stdout
@@ -312,7 +312,7 @@ class TestConcatFiles:
 
 class TestRepairFile:
     def test_truncated_tail_salvaged_including_torn_refill(self, tmp_path):
-        from ibu_tpu.pipelines import check_file, repair_file
+        from ibu_jax.pipelines import check_file, repair_file
 
         p = _write(tmp_path / "t.ibu", _sorted_records(0, 10_000),
                    sorted_flag=True)
@@ -327,7 +327,7 @@ class TestRepairFile:
         assert rep["ok"] and rep["records"] == 9999
 
     def test_lying_sorted_flag_cleared(self, tmp_path):
-        from ibu_tpu.pipelines import repair_file
+        from ibu_jax.pipelines import repair_file
 
         recs = _sorted_records(0, 100)[::-1].copy()
         p = _write(tmp_path / "l.ibu", recs, sorted_flag=True)
@@ -338,7 +338,7 @@ class TestRepairFile:
         assert any("lying" in a for a in stats["actions"])
 
     def test_unclaimed_order_flag_set(self, tmp_path):
-        from ibu_tpu.pipelines import repair_file
+        from ibu_jax.pipelines import repair_file
 
         p = _write(tmp_path / "u.ibu", _sorted_records(0, 50))  # no flag
         out = str(tmp_path / "o.ibu")
@@ -347,8 +347,8 @@ class TestRepairFile:
         assert MmapReader(out).header().sorted()
 
     def test_destroyed_header_with_forced_dims(self, tmp_path):
-        from ibu_tpu.errors import InvalidMagicNumber
-        from ibu_tpu.pipelines import repair_file
+        from ibu_jax.errors import InvalidMagicNumber
+        from ibu_jax.pipelines import repair_file
 
         p = _write(tmp_path / "h.ibu", _sorted_records(0, 20), bc_len=9,
                    umi_len=5, sorted_flag=True)
@@ -367,15 +367,15 @@ class TestRepairFile:
             got["barcode"], np.arange(20, dtype=np.uint64))
 
     def test_forcing_one_dim_rejected(self, tmp_path):
-        from ibu_tpu.pipelines import repair_file
+        from ibu_jax.pipelines import repair_file
 
         p = _write(tmp_path / "x.ibu", _sorted_records(0, 5))
         with pytest.raises(ValueError, match="both"):
             repair_file(p, str(tmp_path / "o.ibu"), bc_len=4)
 
     def test_tiny_fragment_rejected(self, tmp_path):
-        from ibu_tpu.errors import IbuError
-        from ibu_tpu.pipelines import repair_file
+        from ibu_jax.errors import IbuError
+        from ibu_jax.pipelines import repair_file
 
         p = tmp_path / "frag.ibu"
         p.write_bytes(b"IBU!\x02\x00")
@@ -383,7 +383,7 @@ class TestRepairFile:
             repair_file(str(p), str(tmp_path / "o.ibu"))
 
     def test_torn_gzip_stream_salvages_prefix(self, tmp_path):
-        from ibu_tpu.pipelines import repair_file
+        from ibu_jax.pipelines import repair_file
 
         p = _write(tmp_path / "g.ibu.gz", _sorted_records(0, 5000),
                    sorted_flag=True, compression="auto")
@@ -406,7 +406,7 @@ class TestRepairFile:
         open(p, "wb").write(raw[:-1])
         out = str(tmp_path / "fixed.ibu")
         r = subprocess.run(
-            [sys.executable, "-m", "ibu_tpu", "repair", p, out],
+            [sys.executable, "-m", "ibu_jax", "repair", p, out],
             capture_output=True, text=True)
         assert r.returncode == 0, r.stderr
         assert "99 records salvaged (sorted, 23 bytes dropped)" in r.stdout

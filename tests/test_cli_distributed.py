@@ -1,4 +1,4 @@
-"""CLI-level pod-cohort tests: ``python -m ibu_tpu <cmd> --distributed``
+"""CLI-level pod-cohort tests: ``python -m ibu_jax <cmd> --distributed``
 run as a real 2-process jax.distributed CPU cluster (the same launch shape
 a pod operator uses — one identical command per host), verifying rank-0-only
 output and cross-rank correctness."""
@@ -12,8 +12,8 @@ import sys
 import numpy as np
 import pytest
 
-from ibu_tpu import Header, MmapReader, Writer
-from ibu_tpu.constructs.record import make_records
+from ibu_jax import Header, MmapReader, Writer
+from ibu_jax.constructs.record import make_records
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -38,7 +38,7 @@ def _run_cohort(cli_args: list, nprocs: int = 2, timeout: int = 150):
     env = _cohort_env()
     procs = [
         subprocess.Popen(
-            [sys.executable, "-m", "ibu_tpu", *cli_args,
+            [sys.executable, "-m", "ibu_jax", *cli_args,
              "--distributed", "--coordinator", f"127.0.0.1:{port}",
              "--num-processes", str(nprocs), "--process-id", str(r)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
@@ -50,7 +50,7 @@ def _run_cohort(cli_args: list, nprocs: int = 2, timeout: int = 150):
     for r, (out, err) in enumerate(outs):
         assert procs[r].returncode == 0, f"rank {r} failed:\n{err[-3000:]}"
     # The CPU stand-in's Gloo backend prints connection banners to stdout
-    # from C++ (real TPU pods coordinate without Gloo), and its unbuffered
+    # from C++, and its unbuffered
     # writes can TEAR mid-line against Python's, so tests must select the
     # recognizable CLI lines rather than assert raw stdout emptiness.
     return outs
@@ -203,8 +203,8 @@ def test_cli_distributed_filter_and_correct(tmp_path):
     matching stats lines and a correctly-verified cross-rank sorted flag."""
     import filecmp
 
-    from ibu_tpu.ops.codec import decode_seqs
-    from ibu_tpu.pipelines import correct_file, filter_file
+    from ibu_jax.ops.codec import decode_seqs
+    from ibu_jax.pipelines import correct_file, filter_file
 
     n = 50_021
     rng = np.random.default_rng(9)
@@ -295,7 +295,7 @@ def test_cli_distributed_dedup_lying_flag_fails_cohort_uniformly(tmp_path):
     env = _cohort_env()
     procs = [
         subprocess.Popen(
-            [sys.executable, "-m", "ibu_tpu", "dedup", path,
+            [sys.executable, "-m", "ibu_jax", "dedup", path,
              str(tmp_path / "out.ibu"),
              "--distributed", "--coordinator", f"127.0.0.1:{port}",
              "--num-processes", "2", "--process-id", str(r)],
@@ -320,7 +320,7 @@ def test_cli_distributed_export_fastq(tmp_path):
     """Each host exports its record range into its own FASTQ shard;
     shards concatenated in rank order must equal the single-host export
     byte-for-byte (plain output, so the bytes compare directly)."""
-    from ibu_tpu.pipelines import export_fastq
+    from ibu_jax.pipelines import export_fastq
 
     n = 30_007
     rng = np.random.default_rng(21)
@@ -359,7 +359,7 @@ def test_cli_distributed_count(tmp_path):
     mmap boundary carry), with duplicates planted astride the rank cut."""
     import filecmp
 
-    from ibu_tpu.pipelines import count_matrix
+    from ibu_jax.pipelines import count_matrix
 
     n = 36_011
     rng = np.random.default_rng(17)
@@ -406,7 +406,7 @@ def test_cli_distributed_ingest_fastq(tmp_path):
     make the read size non-constant)."""
     import filecmp
 
-    from ibu_tpu.pipelines import ingest_fastq
+    from ibu_jax.pipelines import ingest_fastq
 
     n = 25_013
     rng = np.random.default_rng(33)
@@ -438,7 +438,7 @@ def test_cli_distributed_ingest_fastq(tmp_path):
     env = _cohort_env()
     procs = [
         subprocess.Popen(
-            [sys.executable, "-m", "ibu_tpu", "ingest-fastq", str(bad),
+            [sys.executable, "-m", "ibu_jax", "ingest-fastq", str(bad),
              d_out, "--distributed", "--coordinator", f"127.0.0.1:{port}",
              "--num-processes", "2", "--process-id", str(r)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
@@ -465,7 +465,7 @@ def test_cli_distributed_ingest_fastq(tmp_path):
     env = _cohort_env()
     procs = [
         subprocess.Popen(
-            [sys.executable, "-m", "ibu_tpu", "ingest-fastq", str(gz),
+            [sys.executable, "-m", "ibu_jax", "ingest-fastq", str(gz),
              str(tmp_path / "x.ibu"), "--distributed",
              "--coordinator", f"127.0.0.1:{port}",
              "--num-processes", "2", "--process-id", str(r)],
@@ -492,19 +492,19 @@ def test_cli_distributed_flag_validation(tmp_path):
         ))
     env = _cohort_env()
     r = subprocess.run(
-        [sys.executable, "-m", "ibu_tpu", "stats", path,
+        [sys.executable, "-m", "ibu_jax", "stats", path,
          "--engine", "native", "--distributed"],
         capture_output=True, text=True, env=env,
     )
     assert r.returncode == 2 and "drop --engine native" in r.stderr
     r = subprocess.run(
-        [sys.executable, "-m", "ibu_tpu", "sort", path,
+        [sys.executable, "-m", "ibu_jax", "sort", path,
          str(tmp_path / "o.ibu"), "--distributed"],
         capture_output=True, text=True, env=env,
     )
     assert r.returncode == 2 and "--engine mesh" in r.stderr
     r = subprocess.run(
-        [sys.executable, "-m", "ibu_tpu", "count", path,
+        [sys.executable, "-m", "ibu_jax", "count", path,
          str(tmp_path / "cnt"), "--engine", "device", "--distributed"],
         capture_output=True, text=True, env=env,
     )
@@ -514,11 +514,11 @@ def test_cli_distributed_flag_validation(tmp_path):
 @pytest.mark.slow
 def test_cli_distributed_sort_pod_host_engine(tmp_path):
     """`sort --engine pod --distributed` on the CPU stand-in auto-routes
-    to the shared-FS native external sample sort (VERDICT r4 #3): per-rank
+    to the shared-FS native external sample sort: per-rank
     chunk sorts -> sampled triple splitters -> per-rank interval merges
     pwritten straight into the shared output. Byte-identical to the
     single-host native sort, duplicate triples astride splitters included."""
-    from ibu_tpu import native
+    from ibu_jax import native
 
     if not native.available():
         pytest.skip("no native runtime on this box")
@@ -553,7 +553,7 @@ def test_cli_distributed_sort_pod_three_ranks(tmp_path):
     one barcode, so the sampled splitters collapse onto the hot key and
     interval assignment must stay exact (a key belongs wholly to one
     rank)."""
-    from ibu_tpu import native
+    from ibu_jax import native
 
     if not native.available():
         pytest.skip("no native runtime on this box")

@@ -1,13 +1,12 @@
-"""Codec tests: numpy oracle ↔ lax ↔ Pallas (interpret mode) agreement,
-2-bit table parity with the format contract (``record.rs:19-27``)."""
+"""Codec tests: numpy oracle ↔ lax agreement (per field and fused per
+record), 2-bit table parity with the format contract (``record.rs:19-27``)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ibu_tpu.ops import codec as C
-from ibu_tpu.ops import codec_pallas as P
-from ibu_tpu.ops.u64 import join_u64, records_from_soa, soa_from_records, split_u64
+from ibu_jax.ops import codec as C
+from ibu_jax.ops.u64 import join_u64, records_from_soa, soa_from_records, split_u64
 from tests.conftest import make_records_arange
 
 
@@ -90,54 +89,63 @@ class TestLaxAgainstNumpy:
         assert np.array_equal(join_u64(pair[0], pair[1]), C.np_pack(rows))
 
 
-class TestPallasInterpret:
-    """Pallas kernels vs the lax oracle, CPU interpret mode."""
+def _planes(rows):
+    return jnp.asarray(C.rows_to_planes(rows))
 
-    @pytest.mark.parametrize("L", [1, 16, 17, 32])
-    def test_encode_planes(self, L):
-        rows = random_rows(1000, L, seed=L)  # non-multiple of tile: pads
-        planes = jnp.asarray(C.rows_to_planes(rows))
-        got = P.encode_planes(planes, tile_n=256, interpret=True)
-        want = C.lax_encode_planes(planes)
-        assert np.array_equal(np.asarray(got), np.asarray(want))
 
-    @pytest.mark.parametrize("L", [1, 16, 17, 32])
-    def test_decode_planes(self, L):
-        rows = random_rows(777, L, seed=L)
-        pair = jnp.asarray(C.words_to_pair(C.np_pack(rows)))
-        got = P.decode_planes(pair, L, tile_n=256, interpret=True)
-        assert np.array_equal(C.planes_to_rows(np.asarray(got)), rows)
+class TestFusedRecordCodec:
+    """The jitted record codec the device runs, against the numpy oracle."""
 
-    def test_encode_records_fused(self):
-        n = 513
-        bc_rows = random_rows(n, 16, seed=1)
-        umi_rows = random_rows(n, 12, seed=2)
-        idx = np.arange(n, dtype=np.uint64) * np.uint64(7)
-        soa = P.encode_records(
-            jnp.asarray(C.rows_to_planes(bc_rows)),
-            jnp.asarray(C.rows_to_planes(umi_rows)),
+    @pytest.mark.parametrize("field", ["barcode", "umi"])
+    @pytest.mark.parametrize("L", [1, 15, 16, 17, 31, 32])
+    def test_encode_matches_numpy(self, field, L):
+        n = 1001
+        bc_rows = random_rows(n, L if field == "barcode" else 16, seed=L)
+        umi_rows = random_rows(n, L if field == "umi" else 12, seed=50 + L)
+        idx = np.arange(n, dtype=np.uint64) * np.uint64(0x100000007)
+        soa = C.lax_encode_records(
+            _planes(bc_rows), _planes(umi_rows),
             jnp.asarray(C.words_to_pair(idx)),
-            tile_n=128,
-            interpret=True,
         )
+        assert soa.shape == (6, n) and soa.dtype == jnp.uint32
         records = records_from_soa(np.asarray(soa))
         assert np.array_equal(records["barcode"], C.np_pack(bc_rows))
         assert np.array_equal(records["umi"], C.np_pack(umi_rows))
         assert np.array_equal(records["index"], idx)
 
-    def test_decode_records_fused_roundtrip(self):
-        n = 300
-        bc_rows = random_rows(n, 20, seed=3)
-        umi_rows = random_rows(n, 10, seed=4)
-        idx = np.arange(n, dtype=np.uint64)
-        from ibu_tpu.constructs.record import make_records
+    @pytest.mark.parametrize("field", ["barcode", "umi"])
+    @pytest.mark.parametrize("L", [1, 15, 16, 17, 31, 32])
+    def test_decode_matches_numpy(self, field, L):
+        from ibu_jax.constructs.record import make_records
 
+        n = 999
+        bc_len = L if field == "barcode" else 16
+        umi_len = L if field == "umi" else 12
+        bc_rows = random_rows(n, bc_len, seed=100 + L)
+        umi_rows = random_rows(n, umi_len, seed=150 + L)
+        idx = np.arange(n, dtype=np.uint64) << np.uint64(31)
         records = make_records(C.np_pack(bc_rows), C.np_pack(umi_rows), idx)
-        soa = jnp.asarray(soa_from_records(records))
-        bc_p, umi_p, idx_pair = P.decode_records(
-            soa, 20, 10, tile_n=128, interpret=True
+        bc_p, umi_p, idx_pair = C.lax_decode_records(
+            jnp.asarray(soa_from_records(records)), bc_len, umi_len
         )
         assert np.array_equal(C.planes_to_rows(np.asarray(bc_p)), bc_rows)
+        assert np.array_equal(C.planes_to_rows(np.asarray(umi_p)), umi_rows)
+        assert np.array_equal(C.pair_to_words(np.asarray(idx_pair)), idx)
+
+    @pytest.mark.parametrize("n", [1, 2, 127, 4097])
+    def test_odd_record_counts_roundtrip(self, n):
+        """No tile padding: any record count, lowercase in, uppercase out."""
+        bc_rows = random_rows(n, 16, seed=n, lowercase=True)
+        umi_rows = random_rows(n, 12, seed=n + 1)
+        idx = np.arange(n, dtype=np.uint64)
+        soa = C.lax_encode_records(
+            _planes(bc_rows), _planes(umi_rows),
+            jnp.asarray(C.words_to_pair(idx)),
+        )
+        bc_p, umi_p, idx_pair = C.lax_decode_records(soa, 16, 12)
+        assert np.array_equal(
+            C.planes_to_rows(np.asarray(bc_p)), bc_rows - 32  # upper-cased
+        )
         assert np.array_equal(C.planes_to_rows(np.asarray(umi_p)), umi_rows)
         assert np.array_equal(C.pair_to_words(np.asarray(idx_pair)), idx)
 
@@ -163,7 +171,7 @@ class TestU64Pairs:
         assert back.tobytes() == records.tobytes()
 
     def test_soa_row_order(self):
-        from ibu_tpu.constructs.record import make_records
+        from ibu_jax.constructs.record import make_records
 
         r = make_records(
             np.array([0x0000000200000001], dtype=np.uint64),

@@ -10,9 +10,9 @@ at decompression.
 import numpy as np
 import pytest
 
-from ibu_tpu import Header, Writer
-from ibu_tpu.constructs.record import make_records
-from ibu_tpu.__main__ import main
+from ibu_jax import Header, Writer
+from ibu_jax.constructs.record import make_records
+from ibu_jax.__main__ import main
 
 
 @pytest.fixture

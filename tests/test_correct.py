@@ -12,10 +12,10 @@ import sys
 import numpy as np
 import pytest
 
-from ibu_tpu import Header, MmapReader, Writer
-from ibu_tpu.constructs.record import make_records
-from ibu_tpu.ops import codec as C
-from ibu_tpu.ops.correct import (
+from ibu_jax import Header, MmapReader, Writer
+from ibu_jax.constructs.record import make_records
+from ibu_jax.ops import codec as C
+from ibu_jax.ops.correct import (
     CORRECTED,
     DROP,
     EXACT,
@@ -180,7 +180,7 @@ class TestCorrectFile:
         return str(path)
 
     def test_end_to_end_counts_and_values(self, tmp_path):
-        from ibu_tpu.pipelines import correct_file
+        from ibu_jax.pipelines import correct_file
 
         allow_seqs = ["AAAA", "CCCC", "GGGG"]
         reads = [
@@ -207,7 +207,7 @@ class TestCorrectFile:
         )
 
     def test_keep_unmatched_passthrough(self, tmp_path):
-        from ibu_tpu.pipelines import correct_file
+        from ibu_jax.pipelines import correct_file
 
         p = self._write(tmp_path / "in.ibu", ["TTTT", "AAAT"], 4)
         out = str(tmp_path / "o.ibu")
@@ -217,7 +217,7 @@ class TestCorrectFile:
         assert got == ["TTTT", "AAAA"]
 
     def test_sorted_flag_reflects_observed_order(self, tmp_path):
-        from ibu_tpu.pipelines import correct_file
+        from ibu_jax.pipelines import correct_file
 
         # output comes out sorted here (all map to AAAA, indices ascend)
         p = self._write(tmp_path / "s.ibu", ["AAAT", "AAAA", "AATA"], 4)
@@ -236,7 +236,7 @@ class TestCorrectFile:
         allow.write_text("AAAA\n")
         out = str(tmp_path / "out.ibu")
         r = subprocess.run(
-            [sys.executable, "-m", "ibu_tpu", "correct", p, out,
+            [sys.executable, "-m", "ibu_jax", "correct", p, out,
              "--barcodes", str(allow)],
             capture_output=True, text=True)
         assert r.returncode == 0, r.stderr

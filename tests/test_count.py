@@ -11,9 +11,9 @@ import sys
 import numpy as np
 import pytest
 
-from ibu_tpu import Header, MmapReader, Writer
-from ibu_tpu.constructs.record import make_records
-from ibu_tpu.pipelines import count_matrix
+from ibu_jax import Header, MmapReader, Writer
+from ibu_jax.constructs.record import make_records
+from ibu_jax.pipelines import count_matrix
 
 
 def _write(path, bc, umi, idx, bc_len=8, umi_len=6):
@@ -73,7 +73,7 @@ class TestCountMatrix:
             "barcodes": 2, "indices": 2, "entries": 3, "molecules": 4,
             "records": 7,
         }
-        from ibu_tpu.ops import codec as C
+        from ibu_jax.ops import codec as C
 
         entries = _read_mtx(prefix)
         b1 = C.decode_seqs(np.array([1], np.uint64), 8)[0]
@@ -95,7 +95,7 @@ class TestCountMatrix:
         want = _oracle(recs, dedup=dedup)
         assert stats["entries"] == len(want)
         assert stats["molecules"] == sum(want.values())
-        from ibu_tpu.ops import codec as C
+        from ibu_jax.ops import codec as C
 
         entries = _read_mtx(prefix)
         got = {}
@@ -105,7 +105,7 @@ class TestCountMatrix:
         assert got == want
 
     def test_dedup_file_then_raw_counts_match_dedup_semantics(self, tmp_path):
-        from ibu_tpu.pipelines import dedup_file, sort_file_device
+        from ibu_jax.pipelines import dedup_file, sort_file_device
 
         rng = np.random.default_rng(9)
         n = 3000
@@ -170,7 +170,7 @@ class TestCountMatrix:
             count_matrix(str(path), str(tmp_path / "l"))
 
     def test_device_engine_matches_host_on_sorted_input(self, tmp_path):
-        from ibu_tpu.pipelines import sort_file_device
+        from ibu_jax.pipelines import sort_file_device
 
         rng = np.random.default_rng(11)
         n = 6000
@@ -200,7 +200,7 @@ class TestCountMatrix:
             umi=rng.integers(0, 5, n),
             idx=rng.integers(0, 120, n),
         )
-        from ibu_tpu.pipelines import sort_file_device
+        from ibu_jax.pipelines import sort_file_device
 
         srt = str(tmp_path / "g.sorted.ibu")
         sort_file_device(p, srt)
@@ -210,8 +210,8 @@ class TestCountMatrix:
         assert a["entries"] > 16384  # growth actually exercised
 
     def test_pair_kernel_hints_match_unhinted(self):
-        from ibu_tpu.ops.stats import pair_molecule_counts
-        from ibu_tpu.ops.u64 import soa_from_records
+        from ibu_jax.ops.stats import pair_molecule_counts
+        from ibu_jax.ops.u64 import soa_from_records
 
         rng = np.random.default_rng(17)
         recs = make_records(
@@ -292,7 +292,7 @@ class TestCountMatrix:
             w.write_batch(recs)
         with pytest.raises(ValueError, match="gzip-compressed"):
             count_matrix(p, str(tmp_path / "z"))
-        from ibu_tpu.pipelines import correct_file
+        from ibu_jax.pipelines import correct_file
 
         with pytest.raises(ValueError, match="gzip-compressed"):
             correct_file(p, str(tmp_path / "z.ibu"), [1])
@@ -300,7 +300,7 @@ class TestCountMatrix:
     def test_cli(self, tmp_path):
         p, _ = _write(tmp_path / "c.ibu", bc=[3, 3], umi=[1, 1], idx=[7, 7])
         r = subprocess.run(
-            [sys.executable, "-m", "ibu_tpu", "count", p,
+            [sys.executable, "-m", "ibu_jax", "count", p,
              str(tmp_path / "c")],
             capture_output=True, text=True)
         assert r.returncode == 0, r.stderr

@@ -8,9 +8,9 @@ the file's records, never a resampling).
 import numpy as np
 import pytest
 
-from ibu_tpu import Header, MmapReader, Writer
-from ibu_tpu.constructs.record import make_records
-from ibu_tpu.data import RecordLoader
+from ibu_jax import Header, MmapReader, Writer
+from ibu_jax.constructs.record import make_records
+from ibu_jax.data import RecordLoader
 
 
 @pytest.fixture(scope="module")
@@ -111,9 +111,9 @@ class TestHostPath:
     def test_compressed_path_clear_error(self, tmp_path):
         import gzip
 
-        from ibu_tpu import Header, Writer
-        from ibu_tpu.constructs.record import make_records
-        from ibu_tpu.data import RecordLoader
+        from ibu_jax import Header, Writer
+        from ibu_jax.constructs.record import make_records
+        from ibu_jax.data import RecordLoader
 
         i = np.arange(100, dtype=np.uint64)
         p = str(tmp_path / "z.ibu.gz")
@@ -145,7 +145,7 @@ class TestDevicePath:
     def test_device_batches_match_host_oracle(self, ibu_file):
         import jax
 
-        from ibu_tpu.parallel.device import make_mesh
+        from ibu_jax.parallel.device import make_mesh
 
         path, n = ibu_file
         mesh = make_mesh()

@@ -9,12 +9,12 @@ carries forced by tiny batch sizes.
 import numpy as np
 import pytest
 
-from ibu_tpu import Header, Writer
-from ibu_tpu.constructs.record import make_records
-from ibu_tpu.io.mmap import MmapReader
-from ibu_tpu.ops.stats import molecule_counts, molecule_counts_np
-from ibu_tpu.ops.u64 import soa_from_records
-from ibu_tpu.pipelines import dedup_file
+from ibu_jax import Header, Writer
+from ibu_jax.constructs.record import make_records
+from ibu_jax.io.mmap import MmapReader
+from ibu_jax.ops.stats import molecule_counts, molecule_counts_np
+from ibu_jax.ops.u64 import soa_from_records
+from ibu_jax.pipelines import dedup_file
 
 
 def _random_dup_records(rng, n, n_barcodes=17, n_umis=11):
@@ -158,7 +158,7 @@ class TestDedupFile:
     def test_unsorted_mesh_fallback(self, tmp_path, monkeypatch):
         # with the native runtime unavailable and >1 device, the pre-sort
         # falls back to the distributed mesh sort
-        from ibu_tpu.native import bindings as native
+        from ibu_jax.native import bindings as native
 
         monkeypatch.setattr(native, "available", lambda: False)
         rng = np.random.default_rng(4)
@@ -197,7 +197,7 @@ class TestDedupFile:
         recs = self._sorted_dups(rng, 500)
         src, dst = tmp_path / "c.ibu", tmp_path / "co.ibu"
         self._write(src, recs, sorted_flag=True)
-        from ibu_tpu.__main__ import main
+        from ibu_jax.__main__ import main
 
         assert main(["dedup", str(src), str(dst)]) == 0
         out = capsys.readouterr().out

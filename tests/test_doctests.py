@@ -5,29 +5,29 @@ import doctest
 
 import pytest
 
-import ibu_tpu.constructs.header
-import ibu_tpu.constructs.record
-import ibu_tpu.io.compression
-import ibu_tpu.io.mmap
-import ibu_tpu.io.reader
-import ibu_tpu.io.writer
-import ibu_tpu.ops.codec
-import ibu_tpu.ops.u64
-import ibu_tpu.parallel.processor
+import ibu_jax.constructs.header
+import ibu_jax.constructs.record
+import ibu_jax.io.compression
+import ibu_jax.io.mmap
+import ibu_jax.io.reader
+import ibu_jax.io.writer
+import ibu_jax.ops.codec
+import ibu_jax.ops.u64
+import ibu_jax.parallel.processor
 
 
 @pytest.mark.parametrize(
     "module",
     [
-        ibu_tpu.constructs.header,
-        ibu_tpu.constructs.record,
-        ibu_tpu.io.compression,
-        ibu_tpu.io.mmap,
-        ibu_tpu.io.reader,
-        ibu_tpu.io.writer,
-        ibu_tpu.ops.codec,
-        ibu_tpu.ops.u64,
-        ibu_tpu.parallel.processor,
+        ibu_jax.constructs.header,
+        ibu_jax.constructs.record,
+        ibu_jax.io.compression,
+        ibu_jax.io.mmap,
+        ibu_jax.io.reader,
+        ibu_jax.io.writer,
+        ibu_jax.ops.codec,
+        ibu_jax.ops.u64,
+        ibu_jax.parallel.processor,
     ],
 )
 def test_module_doctests(module):

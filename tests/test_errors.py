@@ -2,7 +2,7 @@
 
 import pytest
 
-from ibu_tpu import (
+from ibu_jax import (
     CompressionError,
     IbuError,
     IbuIoError,

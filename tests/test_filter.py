@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from ibu_tpu import Header, Writer
-from ibu_tpu.constructs.record import make_records
-from ibu_tpu.io.mmap import MmapReader
-from ibu_tpu.ops.codec import np_pack
-from ibu_tpu.pipelines import filter_file
+from ibu_jax import Header, Writer
+from ibu_jax.constructs.record import make_records
+from ibu_jax.io.mmap import MmapReader
+from ibu_jax.ops.codec import np_pack
+from ibu_jax.pipelines import filter_file
 
 
 def _write(path, recs, bc_len=16, sorted_flag=False):
@@ -86,7 +86,7 @@ class TestFilterCLI:
         listing.write_text(
             f"# comment\n{seqs[0]}\n{seqs[2].lower()}\n12345\n"
         )
-        from ibu_tpu.__main__ import main
+        from ibu_jax.__main__ import main
 
         rc = main(
             ["filter", str(src), str(dst), "--barcodes", str(listing)]
@@ -103,7 +103,7 @@ class TestFilterCLI:
         _write(src, _recs([1]))
         listing = tmp_path / "bad.txt"
         listing.write_text("ACGT\n")  # length 4, file bc_len 16
-        from ibu_tpu.__main__ import main
+        from ibu_jax.__main__ import main
 
         with pytest.raises(SystemExit, match="length 4"):
             main(["filter", str(src), str(dst), "--barcodes", str(listing)])

@@ -12,11 +12,11 @@ import os
 import numpy as np
 import pytest
 
-from ibu_tpu import Header, MmapReader, Reader, Writer, sort_records
-from ibu_tpu.ops import codec as C
-from ibu_tpu.ops.stats import checksum_records_np
-from ibu_tpu.parallel.device import stream_file_stats
-from ibu_tpu.pipelines import decode_batch, encode_batch, sort_batch
+from ibu_jax import Header, MmapReader, Reader, Writer, sort_records
+from ibu_jax.ops import codec as C
+from ibu_jax.ops.stats import checksum_records_np
+from ibu_jax.parallel.device import stream_file_stats
+from ibu_jax.pipelines import decode_batch, encode_batch, sort_batch
 
 
 #: CI runs 8 seeds; set FUZZ_SEEDS=N for an extended sweep.
@@ -106,7 +106,7 @@ def test_random_roundtrip_config(seed, tmp_path):
             stats["index_sum"],
         ) == want_sums
 
-        from ibu_tpu.pipelines import export_fastq
+        from ibu_jax.pipelines import export_fastq
 
         fq = tmp_path / f"f{seed}.fastq"
         assert export_fastq(str(path), str(fq),
@@ -124,8 +124,8 @@ def test_random_roundtrip_config(seed, tmp_path):
             assert int(lines[4 * k][2:]) == int(srt["index"][k])
 
         # dedup + filter legs vs set-based host oracles
-        from ibu_tpu.ops.stats import molecule_counts_np
-        from ibu_tpu.pipelines import dedup_file, filter_file
+        from ibu_jax.ops.stats import molecule_counts_np
+        from ibu_jax.pipelines import dedup_file, filter_file
 
         dd = tmp_path / f"f{seed}.dedup.ibu"
         dstats = dedup_file(str(path), str(dd))
@@ -152,7 +152,7 @@ def test_random_roundtrip_config(seed, tmp_path):
         # Hamming distances computed on DECODED base rows, not the XOR
         # trick the production kernel uses
         if n:
-            from ibu_tpu.pipelines import correct_file
+            from ibu_jax.pipelines import correct_file
 
             base = rng.choice(records["barcode"],
                               size=int(rng.integers(1, 5)), replace=True)
@@ -181,7 +181,7 @@ def test_random_roundtrip_config(seed, tmp_path):
             assert np.array_equal(got_kept, want_kept)
 
         # audit + subsample + split→concat + repair legs
-        from ibu_tpu.pipelines import (
+        from ibu_jax.pipelines import (
             check_file,
             concat_files,
             repair_file,
@@ -217,7 +217,7 @@ def test_random_roundtrip_config(seed, tmp_path):
 
         # indexed lookup vs isin oracle (file is sorted with the flag set)
         if n:
-            from ibu_tpu.pipelines import lookup_barcodes
+            from ibu_jax.pipelines import lookup_barcodes
 
             qs = np.concatenate(
                 [
@@ -231,8 +231,8 @@ def test_random_roundtrip_config(seed, tmp_path):
             assert np.array_equal(hits, want_hits)
 
         # count matrix (sorted fast path) vs the pair-triple oracle
-        from ibu_tpu.ops.stats import pair_molecule_counts_np
-        from ibu_tpu.pipelines import count_matrix
+        from ibu_jax.ops.stats import pair_molecule_counts_np
+        from ibu_jax.pipelines import count_matrix
 
         want_pairs = pair_molecule_counts_np(records)
         mstats = count_matrix(str(path), str(tmp_path / f"f{seed}.cm"),
@@ -244,7 +244,7 @@ def test_random_roundtrip_config(seed, tmp_path):
         # the barcodes at/above the reported threshold (no planted gap
         # here, so assert the contract, not a particular cut)
         if n:
-            from ibu_tpu.pipelines import call_cells
+            from ibu_jax.pipelines import call_cells
 
             allowf = tmp_path / f"f{seed}.cells.txt"
             method = "knee" if rng.integers(0, 2) else "ordmag"

@@ -1,4 +1,4 @@
-"""Cohort failure-injection fuzz (VERDICT r4 #6).
+"""Cohort failure-injection fuzz.
 
 The round-4/5 cohort semantics (failures travel as data through
 checkpoint allgathers; cooperative writes unlink their outputs; every
@@ -29,8 +29,8 @@ import textwrap
 import numpy as np
 import pytest
 
-from ibu_tpu import Header, Writer
-from ibu_tpu.constructs.record import make_records
+from ibu_jax import Header, Writer
+from ibu_jax.constructs.record import make_records
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -44,24 +44,24 @@ WORKER = textwrap.dedent(
     os.environ["JAX_PLATFORMS"] = "cpu"
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
     sys.path.insert(0, {repo!r})
-    from ibu_tpu.utils import apply_platform_env
+    from ibu_jax.utils import apply_platform_env
     apply_platform_env()
     import jax
     jax.distributed.initialize(
         f"127.0.0.1:{{port}}", num_processes=nprocs, process_id=rank
     )
-    from ibu_tpu.parallel import multihost as mh
+    from ibu_jax.parallel import multihost as mh
 
     if rank == fail_rank:
         if tool == "sort-host":
             # the host sort writes through the native merge, not
             # _pwrite_all — inject there
-            from ibu_tpu import native as _nat
+            from ibu_jax import native as _nat
             real_merge = _nat.merge_runs_interval
             def boom_merge(*a, **k):
                 raise OSError(28, "injected ENOSPC (fuzz)")
             _nat.merge_runs_interval = boom_merge
-            mh_native = sys.modules.get("ibu_tpu.native")
+            mh_native = sys.modules.get("ibu_jax.native")
             mh_native.merge_runs_interval = boom_merge
         else:
             # inject at the FIRST write: ranges this small make exactly
@@ -112,7 +112,7 @@ def _free_port() -> int:
     "seed", range(int(os.environ.get("FUZZ_COHORT_SEEDS", 4)))
 )
 def test_cohort_failure_injection(seed, tmp_path):
-    from ibu_tpu import native
+    from ibu_jax import native
 
     rng = np.random.default_rng(7000 + seed)
     tool = TOOLS[int(rng.integers(0, len(TOOLS)))]
@@ -177,7 +177,7 @@ def test_cohort_failure_injection(seed, tmp_path):
             "\n".join(e[-1500:] for _, e in outs)
         )
         # byte-identity vs the single-host tool
-        from ibu_tpu.pipelines import (
+        from ibu_jax.pipelines import (
             correct_file,
             count_matrix,
             dedup_file,
@@ -196,7 +196,7 @@ def test_cohort_failure_injection(seed, tmp_path):
         elif tool == "sort-host":
             native.sort_file(in_path, single)
         else:
-            from ibu_tpu.pipelines import sort_file_device
+            from ibu_jax.pipelines import sort_file_device
 
             sort_file_device(in_path, single)
         if tool == "count":

@@ -15,7 +15,7 @@ import os
 import numpy as np
 import pytest
 
-from ibu_tpu import (
+from ibu_jax import (
     Header,
     InvalidBarcodeLength,
     InvalidMagicNumber,
@@ -28,7 +28,7 @@ from ibu_tpu import (
     Writer,
     load_to_vec,
 )
-from ibu_tpu.constructs.record import make_records
+from ibu_jax.constructs.record import make_records
 
 FIXDIR = os.path.join(os.path.dirname(__file__), "fixtures")
 
@@ -60,7 +60,7 @@ class TestWriterProducesGoldenBytes:
     """Writer output must equal the independently-encoded fixture bytes."""
 
     def test_empty(self):
-        from ibu_tpu import RECORD_DTYPE
+        from ibu_jax import RECORD_DTYPE
 
         assert write_bytes(
             Header.new(16, 12), np.empty(0, dtype=RECORD_DTYPE)
@@ -104,7 +104,7 @@ class TestWriterProducesGoldenBytes:
     def test_codec_boundary_lengths(self, L):
         """The DEVICE codec must reproduce the independently hand-packed
         2-bit words at every hi/lo-word boundary length."""
-        from ibu_tpu.pipelines import encode_batch
+        from ibu_jax.pipelines import encode_batch
 
         bc_seq, umi_seq = seq_of(L, 0), seq_of(L, 3)
         rows = lambda s: np.frombuffer(s.encode(), np.uint8)[None, :]
@@ -114,7 +114,7 @@ class TestWriterProducesGoldenBytes:
         assert write_bytes(Header.new(L, L), recs) == fixture(f"len{L}.ibu")
 
     def test_bit63_all_t(self):
-        from ibu_tpu.pipelines import encode_batch
+        from ibu_jax.pipelines import encode_batch
 
         rows = np.full((1, 32), ord("T"), np.uint8)
         recs = encode_batch(
@@ -159,7 +159,7 @@ class TestReadersParseGoldenBytes:
 
     @pytest.mark.parametrize("L", [1, 16, 17, 32])
     def test_decode_recovers_sequences(self, L, tmp_path):
-        from ibu_tpu.pipelines import decode_file
+        from ibu_jax.pipelines import decode_file
 
         p = str(tmp_path / "l.ibu")
         with open(p, "wb") as f:

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from ibu_tpu import Header, Writer
-from ibu_tpu.constructs.record import RECORD_DTYPE, make_records
-from ibu_tpu.pipelines import lookup_barcodes
+from ibu_jax import Header, Writer
+from ibu_jax.constructs.record import RECORD_DTYPE, make_records
+from ibu_jax.pipelines import lookup_barcodes
 
 
 def _sorted_file(tmp_path, bc, umi=None, idx=None, name="s.ibu"):
@@ -58,7 +58,7 @@ class TestLookupBarcodes:
     def test_batch_regime_matches_isin_oracle(self, tmp_path):
         # >= LOOKUP_BATCH_MIN distinct queries takes the vectorized
         # searchsorted path; results must match the bisect path's oracle
-        from ibu_tpu.pipelines import LOOKUP_BATCH_MIN
+        from ibu_jax.pipelines import LOOKUP_BATCH_MIN
 
         rng = np.random.default_rng(11)
         bc = rng.integers(0, 2_000, 50_000).astype(np.uint64)
@@ -72,7 +72,7 @@ class TestLookupBarcodes:
         np.testing.assert_array_equal(got, want)
 
     def test_batch_regime_all_absent(self, tmp_path):
-        from ibu_tpu.pipelines import LOOKUP_BATCH_MIN
+        from ibu_jax.pipelines import LOOKUP_BATCH_MIN
 
         path, _ = _sorted_file(tmp_path, [1, 2, 3])
         queries = np.arange(1000, 1000 + LOOKUP_BATCH_MIN, dtype=np.uint64)
@@ -92,12 +92,12 @@ class TestLookupBarcodes:
             lookup_barcodes(path, [1])
 
     def test_cli_sequence_and_integer(self, tmp_path, capsys):
-        from ibu_tpu.ops.codec import decode_seqs, encode_seqs
+        from ibu_jax.ops.codec import decode_seqs, encode_seqs
 
         seq = "ACGTACGTACGTACGT"
         packed = int(np.asarray(encode_seqs([seq]))[0])
         path, recs = _sorted_file(tmp_path, [packed, packed, 77])
-        from ibu_tpu.__main__ import main
+        from ibu_jax.__main__ import main
 
         rc = main(["lookup", path, seq, "77"])
         assert rc == 0
@@ -109,7 +109,7 @@ class TestLookupBarcodes:
 
     def test_cli_wrong_length_rejected(self, tmp_path):
         path, _ = _sorted_file(tmp_path, [1])
-        from ibu_tpu.__main__ import main
+        from ibu_jax.__main__ import main
 
         with pytest.raises(SystemExit, match="length 4"):
             main(["lookup", path, "ACGT"])

@@ -6,7 +6,7 @@ import threading
 import numpy as np
 import pytest
 
-from ibu_tpu import (
+from ibu_jax import (
     BATCH_SIZE,
     BatchProcessor,
     Header,
@@ -17,7 +17,7 @@ from ibu_tpu import (
     ProcessError,
     Record,
 )
-from ibu_tpu.parallel.host import partition, process_parallel
+from ibu_jax.parallel.host import partition, process_parallel
 from tests.conftest import make_records_arange
 
 
@@ -121,7 +121,7 @@ class SumProcessor(ParallelProcessor):
 
 
 class BatchSumProcessor(BatchProcessor):
-    """Vectorized equivalent — the TPU-first hot path."""
+    """Vectorized equivalent — the batch-first hot path."""
 
     def __init__(self, totals, lock):
         self.totals = totals

@@ -12,8 +12,8 @@ import textwrap
 import numpy as np
 import pytest
 
-from ibu_tpu import Header, Writer
-from ibu_tpu.constructs.record import make_records
+from ibu_jax import Header, Writer
+from ibu_jax.constructs.record import make_records
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -31,7 +31,7 @@ WORKER = textwrap.dedent(
     jax.distributed.initialize(
         f"127.0.0.1:{{port}}", num_processes=nprocs, process_id=rank
     )
-    from ibu_tpu.parallel.multihost import (
+    from ibu_jax.parallel.multihost import (
         multihost_barcode_histogram,
         multihost_file_stats,
     )
@@ -65,8 +65,8 @@ WORKER = textwrap.dedent(
     )
     print("HIST3", int(hist3 == hist))
     import jax.numpy as jnp
-    from ibu_tpu.parallel.device import MapReduce
-    from ibu_tpu.parallel.multihost import multihost_map_reduce
+    from ibu_jax.parallel.device import MapReduce
+    from ibu_jax.parallel.multihost import multihost_map_reduce
     engine = MapReduce(
         init=lambda: {{"mx": jnp.zeros((), jnp.uint32)}},
         update=lambda st, soa, n: {{"mx": jnp.maximum(
@@ -165,11 +165,11 @@ SORT_WORKER = textwrap.dedent(
     jax.distributed.initialize(
         f"127.0.0.1:{{port}}", num_processes=nprocs, process_id=rank
     )
-    from ibu_tpu.parallel.multihost import multihost_sort_file
+    from ibu_jax.parallel.multihost import multihost_sort_file
     multihost_sort_file(in_path, out_path, index_bits=32)
     # the final barrier guarantees completeness on EVERY rank: verify
     # the whole sorted file here, not just this rank's slice
-    from ibu_tpu.io.mmap import MmapReader
+    from ibu_jax.io.mmap import MmapReader
     got = MmapReader(out_path)
     src = MmapReader(in_path)
     want = np.sort(
@@ -236,19 +236,19 @@ TIMED_WORKER = textwrap.dedent(
     )
     # Pin each process to ONE physical core: XLA's CPU backend is itself
     # multi-threaded, so an unpinned 1-process baseline would already use
-    # every core and scaling would measure nothing (see RESULTS.md).
+    # every core and scaling would measure nothing.
     os.sched_setaffinity(0, {{rank % os.cpu_count()}})
     os.environ["JAX_PLATFORMS"] = "cpu"
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=1"
     sys.path.insert(0, {repo!r})
-    from ibu_tpu.utils import apply_platform_env
+    from ibu_jax.utils import apply_platform_env
     apply_platform_env()  # platform pin + persistent compile cache
     import jax
     if nprocs > 1:
         jax.distributed.initialize(
             f"127.0.0.1:{{port}}", num_processes=nprocs, process_id=rank
         )
-    from ibu_tpu.parallel.multihost import multihost_file_stats
+    from ibu_jax.parallel.multihost import multihost_file_stats
     best = float("inf")
     for rep in range(3):  # rep 0 pays compilation; best-of drops it
         t0 = time.perf_counter()
@@ -291,7 +291,7 @@ def test_multihost_scaling_efficiency(tmp_path, capsys):
     multihost engine's scaling (partitioning + placement + gathered merge),
     not XLA's internal thread pool. Gate: >=0.75 (BASELINE.md targets 0.85
     on real pod hardware; the stand-in keeps a margin for shared-CI noise).
-    The measured value is printed for RESULTS.md.
+    The measured value is printed.
     """
     if os.cpu_count() < 2:
         pytest.skip("needs >=2 physical cores")
@@ -351,14 +351,14 @@ COUNT_TIMED_WORKER = textwrap.dedent(
     os.environ["JAX_PLATFORMS"] = "cpu"
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=1"
     sys.path.insert(0, {repo!r})
-    from ibu_tpu.utils import apply_platform_env
+    from ibu_jax.utils import apply_platform_env
     apply_platform_env()
     import jax
     if nprocs > 1:
         jax.distributed.initialize(
             f"127.0.0.1:{{port}}", num_processes=nprocs, process_id=rank
         )
-    from ibu_tpu.parallel.multihost import multihost_count_matrix
+    from ibu_jax.parallel.multihost import multihost_count_matrix
     best = float("inf")
     for rep in range(3):
         t0 = time.perf_counter()

@@ -1,15 +1,15 @@
 """Native (C++) host runtime tests — parity with the numpy oracles.
 
 Skipped wholesale if the toolchain can't build the library (nothing in
-ibu_tpu hard-requires native code).
+ibu_jax hard-requires native code).
 """
 
 import numpy as np
 import pytest
 
-from ibu_tpu import Header, Writer, native, sort_records
-from ibu_tpu.constructs.record import RECORD_DTYPE, make_records
-from ibu_tpu.ops import codec as C
+from ibu_jax import Header, Writer, native, sort_records
+from ibu_jax.constructs.record import RECORD_DTYPE, make_records
+from ibu_jax.ops import codec as C
 from tests.conftest import make_records_arange
 
 pytestmark = pytest.mark.skipif(
@@ -59,7 +59,7 @@ class TestNativeIO:
 
     def test_file_is_valid_for_python_reader(self, tmp_path):
         """Native-written files read back through the Python stack."""
-        from ibu_tpu import Reader
+        from ibu_jax import Reader
 
         recs = make_records_arange(100)
         path = str(tmp_path / "n.ibu")
@@ -113,7 +113,7 @@ class TestNativeEngine:
         dst = str(tmp_path / "s.ibu")
         native.write_file(src, Header.new(16, 12).as_bytes(), recs)
         native.sort_file(src, dst, chunk_records=10_000, nthreads=2)
-        from ibu_tpu import MmapReader
+        from ibu_jax import MmapReader
 
         r = MmapReader(dst)
         assert r.len() == n
@@ -127,13 +127,13 @@ class TestNativeEngine:
         native.write_file(src, Header.new(4, 4).as_bytes(),
                           make_records_arange(0))
         native.sort_file(src, dst)
-        from ibu_tpu import MmapReader
+        from ibu_jax import MmapReader
 
         r = MmapReader(dst)
         assert r.len() == 0 and r.header().sorted()
 
     def test_sort_file_invalid_size(self, tmp_path):
-        from ibu_tpu import InvalidMapSize
+        from ibu_jax import InvalidMapSize
 
         src = tmp_path / "bad.ibu"
         src.write_bytes(b"\x00" * 40)  # 32 header + 8 ragged bytes
@@ -155,7 +155,7 @@ class TestNativeEngine:
 class TestReviewRegressions:
     def test_sort_records_readonly_memmap(self, tmp_path):
         """Read-only mmap input must not crash; returns a sorted copy."""
-        from ibu_tpu import MmapReader
+        from ibu_jax import MmapReader
 
         recs = make_records(
             np.array([3, 1, 2], dtype=np.uint64),
@@ -181,7 +181,7 @@ class TestReviewRegressions:
 
 class TestMergeFiles:
     def _sorted_file(self, tmp_path, name, records):
-        from ibu_tpu import Header, Writer
+        from ibu_jax import Header, Writer
 
         records = np.sort(records, order=("barcode", "umi", "index"))
         h = Header.new(16, 12)
@@ -192,7 +192,7 @@ class TestMergeFiles:
         return path, records
 
     def test_three_way_merge(self, tmp_path):
-        native = pytest.importorskip("ibu_tpu.native")
+        native = pytest.importorskip("ibu_jax.native")
         if not native.available():
             pytest.skip(native.load_error())
         rng = np.random.default_rng(70)
@@ -208,7 +208,7 @@ class TestMergeFiles:
             paths.append(p)
         out = str(tmp_path / "merged.ibu")
         native.merge_files(paths, out)
-        from ibu_tpu import MmapReader
+        from ibu_jax import MmapReader
 
         r = MmapReader(out)
         assert r.header().sorted()
@@ -218,10 +218,10 @@ class TestMergeFiles:
         assert np.array_equal(got, want)
 
     def test_unsorted_input_rejected(self, tmp_path):
-        native = pytest.importorskip("ibu_tpu.native")
+        native = pytest.importorskip("ibu_jax.native")
         if not native.available():
             pytest.skip(native.load_error())
-        from ibu_tpu import Header, Writer
+        from ibu_jax import Header, Writer
 
         h = Header.new(16, 12)
         h.set_sorted()  # flag LIES: records are out of order
@@ -244,10 +244,10 @@ class TestMergeFiles:
         assert not (tmp_path / "out.ibu").exists()
 
     def test_flag_and_header_validation(self, tmp_path):
-        native = pytest.importorskip("ibu_tpu.native")
+        native = pytest.importorskip("ibu_jax.native")
         if not native.available():
             pytest.skip(native.load_error())
-        from ibu_tpu import Header, Writer
+        from ibu_jax import Header, Writer
 
         unsorted_path = str(tmp_path / "u.ibu")
         with Writer.from_path(unsorted_path, Header.new(16, 12)) as w:
@@ -275,7 +275,7 @@ class TestMergeFiles:
 
     def test_output_aliasing_input_refused(self, tmp_path):
         """merge out==input would O_TRUNC the input mid-merge (data loss)."""
-        native = pytest.importorskip("ibu_tpu.native")
+        native = pytest.importorskip("ibu_jax.native")
         if not native.available():
             pytest.skip(native.load_error())
         path, _ = self._sorted_file(
@@ -287,7 +287,7 @@ class TestMergeFiles:
         with pytest.raises(ValueError, match="same file"):
             native.merge_files([path], path)
         # input untouched
-        from ibu_tpu import MmapReader
+        from ibu_jax import MmapReader
 
         assert len(MmapReader(path)) == 5
 

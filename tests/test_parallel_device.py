@@ -9,10 +9,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ibu_tpu.constructs.record import make_records
-from ibu_tpu.ops.stats import barcode_histogram_np, checksum_records_np
-from ibu_tpu.ops.u64 import soa_from_records
-from ibu_tpu.parallel.device import (
+from ibu_jax.constructs.record import make_records
+from ibu_jax.ops.stats import barcode_histogram_np, checksum_records_np
+from ibu_jax.ops.u64 import soa_from_records
+from ibu_jax.parallel.device import (
     MapReduce,
     make_mesh,
     sharded_barcode_histogram,
@@ -20,8 +20,8 @@ from ibu_tpu.parallel.device import (
     soa_batches_from_mmap,
     stream_file_stats,
 )
-from ibu_tpu.io.mmap import MmapReader
-from ibu_tpu.parallel.multihost import local_record_range, multihost_file_stats
+from ibu_jax.io.mmap import MmapReader
+from ibu_jax.parallel.multihost import local_record_range, multihost_file_stats
 from tests.conftest import make_records_arange
 
 
@@ -113,7 +113,7 @@ class TestCustomMapReduce:
         records = random_records(20_000, seed=5)
         soa = soa_from_records(records)
         batches = [soa[:, i : i + 4096] for i in range(0, 20_000, 4096)]
-        from ibu_tpu.parallel.device import STATS_MAP_REDUCE, finalize_stats
+        from ibu_jax.parallel.device import STATS_MAP_REDUCE, finalize_stats
 
         got = finalize_stats(STATS_MAP_REDUCE.run(iter(batches)))
         assert got["count"] == 20_000
@@ -208,7 +208,7 @@ class TestReviewRegressions:
 
     def test_as_raw_u32_wire_6x6(self):
         """A 6-record wire batch needs the explicit layout tag."""
-        from ibu_tpu.parallel.device import as_raw_u32
+        from ibu_jax.parallel.device import as_raw_u32
 
         records = make_records_arange(6)
         raw = records.view(np.uint32).reshape(6, 6)
@@ -220,12 +220,12 @@ class TestReviewRegressions:
     def test_limb_accumulator_many_small_batches(self):
         """65k+ tiny batches must not wrap the limb accumulator (silent
         checksum corruption regression)."""
-        from ibu_tpu.parallel.device import STATS_MAP_REDUCE, finalize_stats, make_mesh
+        from ibu_jax.parallel.device import STATS_MAP_REDUCE, finalize_stats, make_mesh
 
         mesh = make_mesh()
         step = STATS_MAP_REDUCE.compile_step(mesh)
         states = STATS_MAP_REDUCE.initial_states(mesh)
-        from ibu_tpu.parallel.device import shard_batch
+        from ibu_jax.parallel.device import shard_batch
 
         # one batch of 8 records with near-max barcodes, replayed 70k times
         records = make_records(
@@ -259,7 +259,7 @@ class TestDeviceHistogram:
     """Device-resident histogram accumulator (cross-shard merge on device)."""
 
     def test_matches_host_oracle(self):
-        from ibu_tpu.parallel.device import DeviceHistogram
+        from ibu_jax.parallel.device import DeviceHistogram
 
         records = random_records(10_000, seed=21, bc_space=200)
         soa = soa_from_records(records)
@@ -268,7 +268,7 @@ class TestDeviceHistogram:
         assert got == barcode_histogram_np(records)
 
     def test_structured_batches_and_uneven_split(self):
-        from ibu_tpu.parallel.device import DeviceHistogram
+        from ibu_jax.parallel.device import DeviceHistogram
 
         records = random_records(777, seed=22, bc_space=50)
         h = DeviceHistogram(capacity=256, max_uniques_per_shard=128)
@@ -276,7 +276,7 @@ class TestDeviceHistogram:
         assert got == barcode_histogram_np(records)
 
     def test_zero_barcode_padding_not_counted(self):
-        from ibu_tpu.parallel.device import DeviceHistogram
+        from ibu_jax.parallel.device import DeviceHistogram
 
         records = make_records(
             np.zeros(9, dtype=np.uint64),
@@ -287,7 +287,7 @@ class TestDeviceHistogram:
         assert h.run(iter([records])) == {0: 9}
 
     def test_u64_max_barcode(self):
-        from ibu_tpu.parallel.device import DeviceHistogram
+        from ibu_jax.parallel.device import DeviceHistogram
 
         big = np.uint64(0xFFFFFFFFFFFFFFFF)
         records = make_records(
@@ -302,7 +302,7 @@ class TestDeviceHistogram:
     def test_staging_fill_levels_exact(self, merge_every):
         # exactness must hold at every stage-fill level: batch counts that
         # end exactly on a merge boundary, one short of it, and one past it
-        from ibu_tpu.parallel.device import DeviceHistogram
+        from ibu_jax.parallel.device import DeviceHistogram
 
         records = random_records(11_000, seed=31, bc_space=300)
         want = barcode_histogram_np(records)
@@ -317,14 +317,14 @@ class TestDeviceHistogram:
             assert got == want, (merge_every, nbatches)
 
     def test_merge_every_validated(self):
-        from ibu_tpu.parallel.device import DeviceHistogram
+        from ibu_jax.parallel.device import DeviceHistogram
 
         with pytest.raises(ValueError, match="merge_every"):
             DeviceHistogram(capacity=64, merge_every=0)
 
     def test_capacity_overflow_raises_at_finalize(self):
         # strict mode (spill=False): table overflow is a terminal error
-        from ibu_tpu.parallel.device import DeviceHistogram
+        from ibu_jax.parallel.device import DeviceHistogram
 
         records = random_records(4096, seed=23)  # ~4096 unique barcodes
         h = DeviceHistogram(
@@ -337,7 +337,7 @@ class TestDeviceHistogram:
     def test_spill_exact_on_4x_capacity_space(self):
         # default (spill=True): a barcode space 4x the device table is
         # exact — overflowed groups drain to the host and fold back in
-        from ibu_tpu.parallel.device import DeviceHistogram
+        from ibu_jax.parallel.device import DeviceHistogram
 
         rng = np.random.default_rng(41)
         capacity = 128
@@ -359,7 +359,7 @@ class TestDeviceHistogram:
     def test_spill_respilled_keys_sum_exactly(self):
         # a key that overflows in one merge cycle and re-enters the table
         # in a later one must end with the SUM of both contributions
-        from ibu_tpu.parallel.device import DeviceHistogram
+        from ibu_jax.parallel.device import DeviceHistogram
 
         capacity = 4
         # cycle 1: keys 0..15 (12 overflow past capacity 4)
@@ -381,9 +381,9 @@ class TestDeviceHistogram:
         assert got == barcode_histogram_np(np.concatenate([a, b]))
 
     def test_spill_stream_file_histogram(self, tmp_ibu_file):
-        # VERDICT r3 #7 done-criterion: ONE streaming call over a barcode
+        # ONE streaming call over a barcode
         # space 4x the device capacity, oracle-exact
-        from ibu_tpu.parallel.device import stream_file_histogram
+        from ibu_jax.parallel.device import stream_file_histogram
 
         rng = np.random.default_rng(42)
         capacity = 256
@@ -402,7 +402,7 @@ class TestDeviceHistogram:
         assert got == barcode_histogram_np(records)
 
     def test_shard_overflow_raises_at_finalize(self):
-        from ibu_tpu.parallel.device import DeviceHistogram
+        from ibu_jax.parallel.device import DeviceHistogram
 
         records = random_records(4096, seed=24)
         h = DeviceHistogram(capacity=1 << 14, max_uniques_per_shard=64)
@@ -411,7 +411,7 @@ class TestDeviceHistogram:
             h.finalize()
 
     def test_merge_across_many_batches(self):
-        from ibu_tpu.parallel.device import DeviceHistogram
+        from ibu_jax.parallel.device import DeviceHistogram
 
         rng = np.random.default_rng(25)
         parts = [
@@ -433,7 +433,7 @@ class TestMultihostMapReduce:
         (single-process path) — max/min barcode over the whole file."""
         import jax.numpy as jnp
 
-        from ibu_tpu.parallel.multihost import multihost_map_reduce
+        from ibu_jax.parallel.multihost import multihost_map_reduce
 
         rng = np.random.default_rng(31)
         bc = rng.integers(1, 1 << 31, 20_000).astype(np.uint64)
@@ -477,7 +477,7 @@ class TestMultihostMapReduce:
         assert int(got["mn"]) == int(bc.min())
 
     def test_stream_file_histogram(self, tmp_ibu_file):
-        from ibu_tpu.parallel.device import stream_file_histogram
+        from ibu_jax.parallel.device import stream_file_histogram
 
         records = random_records(25_000, seed=26, bc_space=400)
         path = tmp_ibu_file(records)
@@ -492,16 +492,16 @@ class TestMultihostMapReduce:
 
 class TestSortedFastPath:
     """Sorted-input histogram fast path (no per-shard sort; in-kernel
-    order verification — VERDICT r4 #4)."""
+    order verification)."""
 
     @staticmethod
     def _sorted_records(n, seed, bc_space):
-        from ibu_tpu.constructs.record import sort_records
+        from ibu_jax.constructs.record import sort_records
 
         return sort_records(random_records(n, seed=seed, bc_space=bc_space))
 
     def test_device_histogram_sorted_matches_oracle(self):
-        from ibu_tpu.parallel.device import DeviceHistogram
+        from ibu_jax.parallel.device import DeviceHistogram
 
         records = self._sorted_records(10_000, 31, 300)
         h = DeviceHistogram(
@@ -513,7 +513,7 @@ class TestSortedFastPath:
     def test_sorted_u64_barcodes_cross_word(self):
         """Barcodes spanning the hi word exercise the 2-word adjacency
         and order checks."""
-        from ibu_tpu.parallel.device import DeviceHistogram
+        from ibu_jax.parallel.device import DeviceHistogram
 
         records = self._sorted_records(5_000, 32, None)  # full u64 space
         h = DeviceHistogram(
@@ -522,7 +522,7 @@ class TestSortedFastPath:
         assert h.run(iter([records])) == barcode_histogram_np(records)
 
     def test_group_spanning_batch_and_shard_boundaries(self):
-        from ibu_tpu.parallel.device import DeviceHistogram
+        from ibu_jax.parallel.device import DeviceHistogram
 
         records = make_records(
             np.repeat(np.arange(5, dtype=np.uint64), 700),
@@ -538,7 +538,7 @@ class TestSortedFastPath:
     def test_lying_sorted_flag_raises(self):
         """Disorder WITHIN a shard's block (the correctness-relevant
         scope — cross-shard merging is by key) must raise at finalize."""
-        from ibu_tpu.parallel.device import DeviceHistogram
+        from ibu_jax.parallel.device import DeviceHistogram
 
         bc = np.arange(64, dtype=np.uint64)
         bc[10], bc[11] = bc[11], bc[10]  # one within-shard decrease
@@ -554,7 +554,7 @@ class TestSortedFastPath:
 
     def test_lying_flag_in_hi_word_only(self):
         """A decrease visible only in the hi word must be caught."""
-        from ibu_tpu.parallel.device import DeviceHistogram
+        from ibu_jax.parallel.device import DeviceHistogram
 
         bc = (np.arange(64, dtype=np.uint64) << np.uint64(32)) | np.uint64(7)
         bc[20], bc[21] = bc[21], bc[20]  # hi-word-only within-shard swap
@@ -571,7 +571,7 @@ class TestSortedFastPath:
     def test_shard_boundary_decrease_is_harmless_and_exact(self):
         """A decrease exactly at a shard boundary cannot corrupt counts
         (merge is by key) and must NOT raise."""
-        from ibu_tpu.parallel.device import DeviceHistogram
+        from ibu_jax.parallel.device import DeviceHistogram
 
         # 8 shards x 2 rows: sorted within every pair, decreasing across
         bc = np.array(
@@ -599,8 +599,8 @@ class TestSortedFastPath:
     def test_stream_file_histogram_auto_fast_path(self, tmp_ibu_file):
         """A header-sorted file takes the fast path automatically and
         stays exact."""
-        from ibu_tpu.constructs.header import Header
-        from ibu_tpu.parallel.device import stream_file_histogram
+        from ibu_jax.constructs.header import Header
+        from ibu_jax.parallel.device import stream_file_histogram
 
         records = self._sorted_records(20_000, 34, 250)
         hdr = Header.new(16, 12)
@@ -615,8 +615,8 @@ class TestSortedFastPath:
         assert got == barcode_histogram_np(records)
 
     def test_stream_file_histogram_lying_flag_raises(self, tmp_ibu_file):
-        from ibu_tpu.constructs.header import Header
-        from ibu_tpu.parallel.device import stream_file_histogram
+        from ibu_jax.constructs.header import Header
+        from ibu_jax.parallel.device import stream_file_histogram
 
         records = random_records(5_000, seed=35, bc_space=100)  # unsorted
         hdr = Header.new(16, 12)
@@ -627,7 +627,7 @@ class TestSortedFastPath:
 
     def test_sorted_with_spill(self):
         """Fast path composes with the exact overflow spill."""
-        from ibu_tpu.parallel.device import DeviceHistogram
+        from ibu_jax.parallel.device import DeviceHistogram
 
         records = self._sorted_records(6_000, 36, 3_000)
         h = DeviceHistogram(

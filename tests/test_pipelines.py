@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from ibu_tpu import MmapReader, sort_records
-from ibu_tpu.ops import codec as C
-from ibu_tpu.pipelines import (
+from ibu_jax import MmapReader, sort_records
+from ibu_jax.ops import codec as C
+from ibu_jax.pipelines import (
     decode_batch,
     decode_file,
     encode_batch,
@@ -40,7 +40,7 @@ class TestBatchPipelines:
     def test_decode_tsv_block_matches_format_oracle(self):
         # the vectorized TSV assembler vs the per-record f-string it
         # replaced, across variable index widths incl. 0 and u64 max
-        from ibu_tpu.pipelines import decode_tsv_block
+        from ibu_jax.pipelines import decode_tsv_block
 
         bc = random_seqs(7, 16, 5)
         umi = random_seqs(7, 12, 6)
@@ -95,15 +95,15 @@ class TestFastqExport:
         umi = random_seqs(n, umi_len, 4)
         idx = np.arange(n, dtype=np.uint64) * np.uint64(7)
         path = str(tmp_path / "x.ibu")
-        from ibu_tpu.constructs.header import Header
-        from ibu_tpu.io.writer import Writer
+        from ibu_jax.constructs.header import Header
+        from ibu_jax.io.writer import Writer
 
         with Writer.from_path(path, Header.new(bc_len, umi_len)) as w:
             w.write_batch(encode_batch(bc, umi, idx))
         return path, bc, umi, idx
 
     def test_export_matches_decoded_sequences(self, tmp_path):
-        from ibu_tpu.pipelines import export_fastq
+        from ibu_jax.pipelines import export_fastq
 
         path, bc, umi, idx = self._make_file(tmp_path)
         out = str(tmp_path / "x.fastq")
@@ -122,7 +122,7 @@ class TestFastqExport:
 
     def test_export_ingest_roundtrip(self, tmp_path):
         """ingest(export(f)) recovers the exact barcode/UMI content."""
-        from ibu_tpu.pipelines import export_fastq
+        from ibu_jax.pipelines import export_fastq
 
         path, bc, umi, _ = self._make_file(tmp_path, n=300)
         out = str(tmp_path / "x.fastq")
@@ -143,7 +143,7 @@ class TestFastqExport:
     def test_export_gzip(self, tmp_path):
         import gzip
 
-        from ibu_tpu.pipelines import export_fastq
+        from ibu_jax.pipelines import export_fastq
 
         path, bc, umi, _ = self._make_file(tmp_path, n=100)
         out = str(tmp_path / "x.fastq.gz")
@@ -153,10 +153,10 @@ class TestFastqExport:
         assert lines[1] == bytes(bc[0]) + bytes(umi[0])
 
     def test_export_u64_max_index_name(self, tmp_path):
-        from ibu_tpu.constructs.header import Header
-        from ibu_tpu.constructs.record import make_records
-        from ibu_tpu.io.writer import Writer
-        from ibu_tpu.pipelines import export_fastq
+        from ibu_jax.constructs.header import Header
+        from ibu_jax.constructs.record import make_records
+        from ibu_jax.io.writer import Writer
+        from ibu_jax.pipelines import export_fastq
 
         path = str(tmp_path / "m.ibu")
         big = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -175,11 +175,11 @@ class TestFastqExport:
 
 class TestSortFileDevice:
     def test_sorted_rewrite(self, tmp_path):
-        from ibu_tpu.constructs.header import Header
-        from ibu_tpu.io.mmap import MmapReader
-        from ibu_tpu.io.writer import Writer
-        from ibu_tpu.constructs.record import make_records
-        from ibu_tpu.pipelines import sort_file_device
+        from ibu_jax.constructs.header import Header
+        from ibu_jax.io.mmap import MmapReader
+        from ibu_jax.io.writer import Writer
+        from ibu_jax.constructs.record import make_records
+        from ibu_jax.pipelines import sort_file_device
 
         rng = np.random.default_rng(60)
         n = 20_000
@@ -201,11 +201,11 @@ class TestSortFileDevice:
         assert np.array_equal(got, want)
 
     def test_big_index_falls_back_to_full_sort(self, tmp_path):
-        from ibu_tpu.constructs.header import Header
-        from ibu_tpu.io.mmap import MmapReader
-        from ibu_tpu.io.writer import Writer
-        from ibu_tpu.constructs.record import make_records
-        from ibu_tpu.pipelines import sort_file_device
+        from ibu_jax.constructs.header import Header
+        from ibu_jax.io.mmap import MmapReader
+        from ibu_jax.io.writer import Writer
+        from ibu_jax.constructs.record import make_records
+        from ibu_jax.pipelines import sort_file_device
 
         rng = np.random.default_rng(61)
         n = 5000
@@ -226,10 +226,10 @@ class TestSortFileDevice:
     def test_header_violating_file_raises_not_mangles(self, tmp_path):
         """A file whose records contradict its own header (hi bits set
         past bc_len=16) must raise — not silently zero those bits."""
-        from ibu_tpu.constructs.header import Header
-        from ibu_tpu.io.writer import Writer
-        from ibu_tpu.constructs.record import make_records
-        from ibu_tpu.pipelines import sort_file_device
+        from ibu_jax.constructs.header import Header
+        from ibu_jax.io.writer import Writer
+        from ibu_jax.constructs.record import make_records
+        from ibu_jax.pipelines import sort_file_device
 
         records = make_records(
             np.array([1 << 40, 7], dtype=np.uint64),  # bc needs >16 bases
@@ -245,7 +245,7 @@ class TestSortFileDevice:
 
 class TestExportFastqGuards:
     def test_bad_qual_rejected(self, tmp_path):
-        from ibu_tpu.pipelines import export_fastq
+        from ibu_jax.pipelines import export_fastq
 
         # non-printable / framing-corrupting quals must be rejected too:
         # a '\n' qual would emit 5-line records, ' ' and '\x00' are outside
@@ -255,9 +255,9 @@ class TestExportFastqGuards:
                 export_fastq("x.ibu", str(tmp_path / "x.fastq"), qual=bad)
 
     def test_qual_range_edges_accepted(self, tmp_path):
-        from ibu_tpu.constructs.header import Header
-        from ibu_tpu.io.writer import Writer
-        from ibu_tpu.pipelines import encode_batch, export_fastq
+        from ibu_jax.constructs.header import Header
+        from ibu_jax.io.writer import Writer
+        from ibu_jax.pipelines import encode_batch, export_fastq
 
         bc = random_seqs(4, 16, 70)
         umi = random_seqs(4, 12, 71)
@@ -274,9 +274,9 @@ class TestExportFastqGuards:
         pytest.importorskip("zstandard")
         import zstandard
 
-        from ibu_tpu.constructs.header import Header
-        from ibu_tpu.io.writer import Writer
-        from ibu_tpu.pipelines import encode_batch, export_fastq
+        from ibu_jax.constructs.header import Header
+        from ibu_jax.io.writer import Writer
+        from ibu_jax.pipelines import encode_batch, export_fastq
 
         bc = random_seqs(50, 16, 7)
         umi = random_seqs(50, 12, 8)
@@ -295,12 +295,12 @@ class TestExportFastqGuards:
 
 class TestSplitFile:
     def test_split_matches_partition_rule_and_merge_roundtrips(self, tmp_path):
-        from ibu_tpu.constructs.header import Header
-        from ibu_tpu.io.mmap import MmapReader
-        from ibu_tpu.io.writer import Writer
-        from ibu_tpu.constructs.record import make_records
-        from ibu_tpu.parallel.host import partition
-        from ibu_tpu.pipelines import split_file
+        from ibu_jax.constructs.header import Header
+        from ibu_jax.io.mmap import MmapReader
+        from ibu_jax.io.writer import Writer
+        from ibu_jax.constructs.record import make_records
+        from ibu_jax.parallel.host import partition
+        from ibu_jax.pipelines import split_file
 
         rng = np.random.default_rng(80)
         n = 10_003  # remainder exercises remainder-to-last
@@ -328,7 +328,7 @@ class TestSplitFile:
             assert np.array_equal(np.asarray(r.records), records[start:end])
 
         # split -> merge roundtrips byte-exactly
-        from ibu_tpu import native
+        from ibu_jax import native
 
         if native.available():
             merged = str(tmp_path / "merged.ibu")
@@ -338,17 +338,17 @@ class TestSplitFile:
             )
 
     def test_bad_template_rejected(self, tmp_path):
-        from ibu_tpu.pipelines import split_file
+        from ibu_jax.pipelines import split_file
 
         with pytest.raises(ValueError, match="template"):
             split_file("x.ibu", str(tmp_path / "same.ibu"), 2)
 
     def test_more_shards_than_records(self, tmp_path):
-        from ibu_tpu.constructs.header import Header
-        from ibu_tpu.io.mmap import MmapReader
-        from ibu_tpu.io.writer import Writer
-        from ibu_tpu.constructs.record import make_records
-        from ibu_tpu.pipelines import split_file
+        from ibu_jax.constructs.header import Header
+        from ibu_jax.io.mmap import MmapReader
+        from ibu_jax.io.writer import Writer
+        from ibu_jax.constructs.record import make_records
+        from ibu_jax.pipelines import split_file
 
         src_path = str(tmp_path / "tiny.ibu")
         with Writer.from_path(src_path, Header.new(16, 12)) as w:
@@ -367,9 +367,9 @@ class TestIngestFastq:
         """ingest(export(sorted_file)) == sorted_file byte-for-byte:
         export names reads by index, ingest re-derives arange indices,
         and the sort restores the exact record set."""
-        from ibu_tpu.constructs.header import Header
-        from ibu_tpu.io.writer import Writer
-        from ibu_tpu.pipelines import (
+        from ibu_jax.constructs.header import Header
+        from ibu_jax.io.writer import Writer
+        from ibu_jax.pipelines import (
             encode_batch,
             export_fastq,
             ingest_fastq,
@@ -396,7 +396,7 @@ class TestIngestFastq:
         # records match except the index column (export's read order IS
         # sorted order, so ingest's arange re-derives the same ranks —
         # but the original indices were a permutation; compare bc/umi)
-        from ibu_tpu.io.mmap import MmapReader
+        from ibu_jax.io.mmap import MmapReader
 
         got = np.asarray(MmapReader(out).records)
         assert np.array_equal(got["barcode"], recs["barcode"])
@@ -404,8 +404,8 @@ class TestIngestFastq:
         assert np.array_equal(got["index"], np.arange(2000, dtype=np.uint64))
 
     def test_empty_fastq(self, tmp_path):
-        from ibu_tpu.io.mmap import MmapReader
-        from ibu_tpu.pipelines import ingest_fastq
+        from ibu_jax.io.mmap import MmapReader
+        from ibu_jax.pipelines import ingest_fastq
 
         fq = tmp_path / "e.fastq"
         fq.write_bytes(b"")
@@ -415,7 +415,7 @@ class TestIngestFastq:
         assert len(r) == 0 and r.header().sorted()
 
     def test_short_read_raises(self, tmp_path):
-        from ibu_tpu.pipelines import ingest_fastq
+        from ibu_jax.pipelines import ingest_fastq
 
         fq = tmp_path / "s.fastq"
         fq.write_bytes(b"@r0\nACGT\n+\nIIII\n")
@@ -426,7 +426,7 @@ class TestIngestFastq:
         """The vectorized parser must be exact when lines straddle chunk
         boundaries (tiny chunk_bytes forces a carry on nearly every read),
         under CRLF endings, and when the last line has no newline."""
-        from ibu_tpu.pipelines import fastq_prefix_batches
+        from ibu_jax.pipelines import fastq_prefix_batches
 
         rng = np.random.default_rng(5)
         alphabet = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -453,7 +453,7 @@ class TestIngestFastq:
     def test_short_read_error_reports_physical_line(self, tmp_path):
         """The 1-based line number in the short-read error must survive
         chunked parsing (read #2's sequence is physical line 6)."""
-        from ibu_tpu.pipelines import fastq_prefix_batches
+        from ibu_jax.pipelines import fastq_prefix_batches
 
         fq = tmp_path / "ln.fastq"
         seq = b"ACGTACGTACGTACGTACGTACGTACGT"
@@ -468,8 +468,8 @@ class TestIngestFastq:
         a gzipped FASTQ named '.fastq' must ingest identically."""
         import gzip
 
-        from ibu_tpu.io.mmap import MmapReader
-        from ibu_tpu.pipelines import ingest_fastq
+        from ibu_jax.io.mmap import MmapReader
+        from ibu_jax.pipelines import ingest_fastq
 
         seq = b"ACGTACGTACGTACGTACGTACGTACGT"  # 16 + 12
         fastq = b"".join(
@@ -492,9 +492,9 @@ class TestIngestFastq:
     def test_compressed_output_path(self, tmp_path, monkeypatch, force_fallback):
         """A .gz output path yields gzip output on BOTH the out-of-core
         (native sort + recompress) and in-memory fallback paths (ADVICE r1)."""
-        from ibu_tpu import native
-        from ibu_tpu.io.reader import Reader
-        from ibu_tpu.pipelines import ingest_fastq
+        from ibu_jax import native
+        from ibu_jax.io.reader import Reader
+        from ibu_jax.pipelines import ingest_fastq
 
         if force_fallback:
             monkeypatch.setattr(native, "available", lambda: False)
@@ -521,7 +521,7 @@ class TestParserEmptySiblingLines:
         input to the prefix parser; the native gather's row bound must
         accommodate them (review r5: the prefix_len+7 bound returned
         ENOMEM where the numpy path parsed fine)."""
-        from ibu_tpu.pipelines import fastq_prefix_batches
+        from ibu_jax.pipelines import fastq_prefix_batches
 
         n = 5000
         seq = b"A" * 16

@@ -7,7 +7,7 @@ import io
 import numpy as np
 import pytest
 
-from ibu_tpu import (
+from ibu_jax import (
     HEADER_SIZE,
     RECORD_SIZE,
     Header,
@@ -20,7 +20,7 @@ from ibu_tpu import (
     Writer,
     load_to_vec,
 )
-from ibu_tpu.constructs.record import make_records
+from ibu_jax.constructs.record import make_records
 
 
 def build_stream(n, header=None):
@@ -154,7 +154,7 @@ class TestCompression:
         assert len(list(r)) == 50
 
     def test_torn_gzip_raises_compression_error(self, tmp_path):
-        from ibu_tpu.errors import CompressionError
+        from ibu_jax.errors import CompressionError
 
         raw = build_stream(5000).getvalue()
         blob = gzip.compress(raw)
@@ -169,7 +169,7 @@ class TestCompression:
         # a bit flip in the deflate body/CRC raises gzip.BadGzipFile — an
         # OSError subclass that must still map to the Niffler variant,
         # not IbuIoError
-        from ibu_tpu.errors import CompressionError
+        from ibu_jax.errors import CompressionError
 
         raw = build_stream(5000).getvalue()
         blob = bytearray(gzip.compress(raw))
@@ -188,8 +188,8 @@ class TestCompression:
         zstd = pytest.importorskip("zstandard")
         import numpy as np
 
-        from ibu_tpu.constructs.record import make_records
-        from ibu_tpu.io.writer import Writer
+        from ibu_jax.constructs.record import make_records
+        from ibu_jax.io.writer import Writer
 
         n = 2_000_000  # 48 MB of zero records
         z = np.zeros(n, dtype=np.uint64)
@@ -207,7 +207,7 @@ class TestCompression:
 
     def test_torn_zstd_raises_compression_error(self, tmp_path):
         zstd = pytest.importorskip("zstandard")
-        from ibu_tpu.errors import CompressionError
+        from ibu_jax.errors import CompressionError
 
         raw = build_stream(5000).getvalue()
         blob = zstd.ZstdCompressor().compress(raw)
@@ -238,8 +238,8 @@ class TestCompression:
         pytest.importorskip("zstandard")
         import numpy as np
 
-        from ibu_tpu.constructs.record import make_records
-        from ibu_tpu.io.writer import Writer
+        from ibu_jax.constructs.record import make_records
+        from ibu_jax.io.writer import Writer
 
         n = 500_000
         i = np.arange(n, dtype=np.uint64)
@@ -386,7 +386,7 @@ class TestClone:
         compile."""
         import io
 
-        from ibu_tpu.io.compression import wrap_decompress
+        from ibu_jax.io.compression import wrap_decompress
 
         gz = gzip.compress(build_stream(5).getvalue())
         pipe_like = io.BytesIO(gz)  # no filesystem name, like a pipe

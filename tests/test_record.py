@@ -5,7 +5,7 @@ import itertools
 import numpy as np
 import pytest
 
-from ibu_tpu import (
+from ibu_jax import (
     RECORD_DTYPE,
     RECORD_SIZE,
     Record,
@@ -13,7 +13,7 @@ from ibu_tpu import (
     records_to_bytes,
     sort_records,
 )
-from ibu_tpu.constructs.record import make_records
+from ibu_jax.constructs.record import make_records
 
 U64_MAX = 0xFFFFFFFFFFFFFFFF
 

@@ -1,4 +1,4 @@
-"""Transport-aware engine auto-selection (VERDICT r4 #1).
+"""Transport-aware engine auto-selection.
 
 The decision function is pure and the probes take injected clocks, so the
 logic is tested deterministically with fake timers — no hardware
@@ -9,11 +9,11 @@ assumptions. The end-to-end legs then assert every engine of
 import numpy as np
 import pytest
 
-from ibu_tpu.constructs.header import Header
-from ibu_tpu.constructs.record import make_records
-from ibu_tpu.io.writer import Writer
-from ibu_tpu.parallel import select
-from ibu_tpu.pipelines import file_stats, host_stream_histogram
+from ibu_jax.constructs.header import Header
+from ibu_jax.constructs.record import make_records
+from ibu_jax.io.writer import Writer
+from ibu_jax.parallel import select
+from ibu_jax.pipelines import file_stats, host_stream_histogram
 
 
 @pytest.fixture()
@@ -33,7 +33,7 @@ def small_file(tmp_path):
 
 class TestDecision:
     def test_starved_link_routes_to_native(self):
-        # the measured round-4 reality: 0.041 GB/s feed vs 516 Mrec/s native
+        # a starved feed against a fast native engine
         engine, reason = select.choose_stats_engine(0.041, 516e6)
         assert engine == "native"
         assert "native" in reason
@@ -75,7 +75,7 @@ class TestProbesFakeClock:
         assert 0.5e-3 < gbps < 2e-3  # ~1 MB / 1 s ≈ 1e-3 GB/s
 
     def test_native_probe_fake_timer(self, small_file):
-        from ibu_tpu import native
+        from ibu_jax import native
 
         if not native.available():
             pytest.skip("no native runtime on this box")
@@ -159,7 +159,7 @@ class TestFileStatsEngines:
         assert host == {**want, "engine": "host"}
         device = file_stats(path, engine="device")
         assert device == {**want, "engine": "device"}
-        from ibu_tpu import native
+        from ibu_jax import native
 
         if native.available():
             assert file_stats(path, engine="native") == {
@@ -178,8 +178,8 @@ class TestFileStatsEngines:
 class TestHostHistogram:
     def test_matches_counter(self, small_file):
         path, recs = small_file
-        from ibu_tpu.io.mmap import MmapReader
-        from ibu_tpu.parallel.device import record_batches_from_mmap
+        from ibu_jax.io.mmap import MmapReader
+        from ibu_jax.parallel.device import record_batches_from_mmap
 
         got = host_stream_histogram(
             record_batches_from_mmap(MmapReader(path), 4096)
@@ -197,7 +197,7 @@ class TestCliAuto:
     def test_stats_engine_flags(self, small_file, capsys, monkeypatch):
         import json
 
-        from ibu_tpu.__main__ import main
+        from ibu_jax.__main__ import main
 
         path, recs = small_file
         assert main(["stats", path, "--engine", "host"]) == 0
@@ -210,7 +210,7 @@ class TestCliAuto:
         assert json.loads(capsys.readouterr().out) == host_out
 
     def test_histogram_host_engine_matches_device(self, small_file, capsys):
-        from ibu_tpu.__main__ import main
+        from ibu_jax.__main__ import main
 
         path, _ = small_file
         assert main(["histogram", path, "--top", "5",
@@ -221,7 +221,7 @@ class TestCliAuto:
         assert capsys.readouterr().out == want
 
     def test_histogram_host_rejects_device_table(self, small_file, capsys):
-        from ibu_tpu.__main__ import main
+        from ibu_jax.__main__ import main
 
         path, _ = small_file
         assert main(["histogram", path, "--engine", "host",
@@ -235,7 +235,7 @@ class TestCodecEngine:
 
         monkeypatch.delenv("IBU_AUTO_ENGINE", raising=False)
         # accelerator backend: the probe decides
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
         # starved link + fast native codec -> host
         select.reset_probe_memo()
         select._MEMO.update(
@@ -257,7 +257,7 @@ class TestCodecEngine:
     def test_auto_codec_cpu_backend_routes_by_backend(self, monkeypatch):
         """On a CPU backend the 'device' is the same host and the feed
         probe measures memcpy-to-self — route by backend instead."""
-        from ibu_tpu import native
+        from ibu_jax import native
 
         monkeypatch.delenv("IBU_AUTO_ENGINE", raising=False)
         select.reset_probe_memo()
@@ -274,7 +274,7 @@ class TestCodecEngine:
         assert select.auto_codec_engine(announce=False) == "device"
 
     def test_encode_decode_forks_identical(self):
-        from ibu_tpu.pipelines import decode_batch, encode_batch
+        from ibu_jax.pipelines import decode_batch, encode_batch
 
         rng = np.random.default_rng(8)
         n = 5_000
@@ -292,7 +292,7 @@ class TestCodecEngine:
             assert np.array_equal(a, b)
 
     def test_native_codec_threads_agree(self):
-        from ibu_tpu import native
+        from ibu_jax import native
 
         if not native.available():
             pytest.skip("no native runtime")
@@ -318,7 +318,7 @@ class TestReviewRegressions:
                                                    monkeypatch):
         """Probing an EMPTY file first must not permanently disable the
         native engine for the process (review r5)."""
-        from ibu_tpu import native
+        from ibu_jax import native
 
         if not native.available():
             pytest.skip("no native runtime")
@@ -355,7 +355,7 @@ class TestReviewRegressions:
         monkeypatch.delenv("IBU_AUTO_ENGINE", raising=False)
         # the probe path only decides on accelerator backends (the CPU
         # backend is routed to host outright — memcpy-to-self probe)
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
         select.reset_probe_memo()
         # feed 10 GB/s ≈ 416 Mrec/s; checksum-style bar would be ~900
         # and mis-route to host; the histogram bar (~90) picks device

@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ibu_tpu import sort_records
-from ibu_tpu.constructs.record import make_records
-from ibu_tpu.ops.stats import (
+from ibu_jax import sort_records
+from ibu_jax.constructs.record import make_records
+from ibu_jax.ops.stats import (
     barcode_histogram,
     barcode_histogram_np,
     checksum_records_np,
@@ -16,7 +16,7 @@ from ibu_tpu.ops.stats import (
     limb_sums,
     sort_records_soa,
 )
-from ibu_tpu.ops.u64 import records_from_soa, soa_from_records, split_u64
+from ibu_jax.ops.u64 import records_from_soa, soa_from_records, split_u64
 from tests.conftest import make_records_arange
 
 
@@ -131,8 +131,8 @@ class TestHintedSort:
         import jax.numpy as jnp
 
         rng = np.random.default_rng(seed)
-        from ibu_tpu.constructs.record import make_records
-        from ibu_tpu.ops.u64 import soa_from_records
+        from ibu_jax.constructs.record import make_records
+        from ibu_jax.ops.u64 import soa_from_records
 
         records = make_records(
             rng.integers(0, 1 << bc_bits, n, dtype=np.uint64),
@@ -151,14 +151,14 @@ class TestHintedSort:
         )
         assert np.array_equal(full, hinted)
         want = np.sort(records, order=("barcode", "umi", "index"))
-        from ibu_tpu.ops.u64 import records_from_soa
+        from ibu_jax.ops.u64 import records_from_soa
 
         assert np.array_equal(records_from_soa(hinted), want)
 
     def test_partial_hints(self):
         soa, records = self._random_soa(3000, 60, 20, 40, seed=41)
         got = np.asarray(sort_records_soa(soa, bc_len=32, umi_len=10))
-        from ibu_tpu.ops.u64 import records_from_soa
+        from ibu_jax.ops.u64 import records_from_soa
 
         want = np.sort(records, order=("barcode", "umi", "index"))
         assert np.array_equal(records_from_soa(got), want)
@@ -183,8 +183,8 @@ class TestHintedSort:
         sentinel; reconstruction must still produce the exact multiset."""
         import jax.numpy as jnp
 
-        from ibu_tpu.constructs.record import make_records
-        from ibu_tpu.ops.u64 import records_from_soa, soa_from_records
+        from ibu_jax.constructs.record import make_records
+        from ibu_jax.ops.u64 import records_from_soa, soa_from_records
 
         m = np.uint64(0xFFFFFFFF)  # lo word all-ones, hi zero
         records = make_records(
@@ -212,7 +212,7 @@ class TestSortJitRestriction:
         import jax
         import jax.numpy as jnp
 
-        from ibu_tpu.ops.stats import sort_records_soa
+        from ibu_jax.ops.stats import sort_records_soa
 
         soa = jnp.zeros((6, 8), jnp.uint32)
 

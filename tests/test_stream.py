@@ -6,9 +6,9 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-from ibu_tpu.io.stream import DeviceStream, stream_file
-from ibu_tpu.ops.stats import checksum_records_np
-from ibu_tpu.parallel.device import STATS_MAP_REDUCE, finalize_stats, make_mesh
+from ibu_jax.io.stream import DeviceStream, stream_file
+from ibu_jax.ops.stats import checksum_records_np
+from ibu_jax.parallel.device import STATS_MAP_REDUCE, finalize_stats, make_mesh
 from tests.conftest import make_records_arange
 
 
@@ -64,7 +64,7 @@ class TestStreamDefaults:
 
         out = subprocess.run(
             [sys.executable, "-c",
-             "from ibu_tpu.io.mmap import STREAM_BATCH_RECORDS, "
+             "from ibu_jax.io.mmap import STREAM_BATCH_RECORDS, "
              "STREAM_PREFETCH; print(STREAM_BATCH_RECORDS, STREAM_PREFETCH)"],
             capture_output=True, text=True,
             env={"PATH": "/usr/bin:/bin", "PYTHONPATH": REPO,
@@ -83,7 +83,7 @@ class TestStreamDefaults:
 
         out = subprocess.run(
             [sys.executable, "-c",
-             "from ibu_tpu.io.mmap import BATCH_SIZE, "
+             "from ibu_jax.io.mmap import BATCH_SIZE, "
              "STREAM_BATCH_RECORDS, STREAM_PREFETCH; "
              "assert STREAM_BATCH_RECORDS == BATCH_SIZE; "  # ref mmap.rs:284
              "assert STREAM_PREFETCH >= 1; print('ok')"],
@@ -98,7 +98,7 @@ class TestThreadPrefetched:
     overlapping the consumer's encode)."""
 
     def test_order_and_completeness(self):
-        from ibu_tpu.io.stream import thread_prefetched
+        from ibu_jax.io.stream import thread_prefetched
 
         assert list(thread_prefetched(iter(range(1000)), depth=3)) == list(
             range(1000)
@@ -107,7 +107,7 @@ class TestThreadPrefetched:
     def test_producer_exception_reraises_in_consumer(self):
         import pytest
 
-        from ibu_tpu.io.stream import thread_prefetched
+        from ibu_jax.io.stream import thread_prefetched
 
         def gen():
             yield 1
@@ -123,7 +123,7 @@ class TestThreadPrefetched:
         import threading
         import time
 
-        from ibu_tpu.io.stream import thread_prefetched
+        from ibu_jax.io.stream import thread_prefetched
 
         produced = []
 

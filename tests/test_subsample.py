@@ -12,9 +12,9 @@ import sys
 import numpy as np
 import pytest
 
-from ibu_tpu import Header, MmapReader, Writer
-from ibu_tpu.constructs.record import make_records
-from ibu_tpu.pipelines import subsample_file
+from ibu_jax import Header, MmapReader, Writer
+from ibu_jax.constructs.record import make_records
+from ibu_jax.pipelines import subsample_file
 
 
 def _file(tmp_path, n, sorted_flag=True, name="in.ibu"):
@@ -118,7 +118,7 @@ class TestSubsample:
         p = _file(tmp_path, 500)
         out = str(tmp_path / "o.ibu")
         r = subprocess.run(
-            [sys.executable, "-m", "ibu_tpu", "subsample", p, out,
+            [sys.executable, "-m", "ibu_jax", "subsample", p, out,
              "--fraction", "0.1", "--seed", "3"],
             capture_output=True, text=True)
         assert r.returncode == 0, r.stderr
@@ -137,7 +137,7 @@ class TestInfoCompressed:
         with Writer.from_path(p, h, compression="auto") as w:
             w.write_batch(make_records(i, i, i))
         r = subprocess.run(
-            [sys.executable, "-m", "ibu_tpu", "info", p],
+            [sys.executable, "-m", "ibu_jax", "info", p],
             capture_output=True, text=True)
         assert r.returncode == 0, r.stderr
         d = json.loads(r.stdout)

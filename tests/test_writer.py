@@ -5,9 +5,9 @@ import io
 import numpy as np
 import pytest
 
-from ibu_tpu import HEADER_SIZE, RECORD_SIZE, Header, Reader, Record, Writer
-from ibu_tpu.constructs.record import make_records
-from ibu_tpu.io.writer import DEFAULT_BUFFER_SIZE
+from ibu_jax import HEADER_SIZE, RECORD_SIZE, Header, Reader, Record, Writer
+from ibu_jax.constructs.record import make_records
+from ibu_jax.io.writer import DEFAULT_BUFFER_SIZE
 
 
 def recs(n, base=0):
@@ -256,7 +256,7 @@ class TestWriteCompression:
         assert p.read_bytes()[:4] == b"IBU!"
 
     def test_unknown_kind_raises_and_leaves_no_fd(self, tmp_path):
-        from ibu_tpu.errors import CompressionError
+        from ibu_jax.errors import CompressionError
 
         with pytest.raises(CompressionError) as ei:
             Writer.from_path(str(tmp_path / "x.ibu"), Header.new(16, 12), "lz4")

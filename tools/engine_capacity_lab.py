@@ -3,11 +3,9 @@
 
 Pre-places D distinct wire batches on device, then folds the production
 MapReduce step over them k times (cycling buffers, states chained — every
-dispatch is distinct work, defeating the backend's memoization), blocking
-only at the end. The slope between two chain lengths cancels fixed costs.
-This is the number the end-to-end engine would run at if the host→device
-link were not the bottleneck — the production projection for
-directly-attached chips.
+dispatch is distinct work), blocking only at the end. The slope between
+two chain lengths cancels fixed costs. This is the number the end-to-end
+engine would run at if the host→device link were not the bottleneck.
 
 Prints one JSON dict.
 """
@@ -23,7 +21,7 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from ibu_tpu.utils import apply_platform_env
+from ibu_jax.utils import apply_platform_env
 
 apply_platform_env()
 
@@ -42,7 +40,7 @@ def main() -> None:
 
     import jax
 
-    from ibu_tpu.parallel.device import (
+    from ibu_jax.parallel.device import (
         STATS_MAP_REDUCE,
         finalize_stats,
         make_mesh,

@@ -21,7 +21,7 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from ibu_tpu.utils import apply_platform_env
+from ibu_jax.utils import apply_platform_env
 
 apply_platform_env()
 
@@ -57,8 +57,8 @@ def main() -> None:
 
     import jax
 
-    from ibu_tpu.parallel import device as _dev
-    from ibu_tpu.parallel.device import DeviceHistogram, make_mesh, shard_batch
+    from ibu_jax.parallel import device as _dev
+    from ibu_jax.parallel.device import DeviceHistogram, make_mesh, shard_batch
 
     if args.shard_impl == "scatter":
         # monkeypatch before the first _histogram_fns build (process-local)

@@ -1,7 +1,7 @@
 """Generate the golden IBU fixture corpus under tests/fixtures/.
 
 These bytes are hand-encoded from the documented wire layout — straight
-``struct.pack`` per the reference's spec, deliberately NOT via ibu_tpu's
+``struct.pack`` per the reference's spec, deliberately NOT via ibu_jax's
 Writer — so the fixture tests cross-check the library against an
 independent encoding of the format rather than against itself:
 
@@ -14,7 +14,7 @@ independent encoding of the format rather than against itself:
 * 2-bit sequence packing: A=00 C=01 G=10 T=11, base ``i`` at bits ``2i``
   (``record.rs:19-27``, the bitnuc convention).
 
-The corpus covers the corners VERDICT r1 asked for: empty file, one
+The corpus covers the format's corners: empty file, one
 record, sorted/unsorted flags, bc/umi lengths {1, 16, 17, 32}, u64-max
 fields, gzip- and zstd-compressed copies, and corruption variants
 (bit-flipped magic, truncated tail). Deterministic output: fixed values,
